@@ -1,0 +1,84 @@
+"""Flax variables -> a torch ``state_dict`` for the port's modules.
+
+Inverts the JAX package's ``ckpt/pth_import.py:79-154``: HWIO -> OIHW for
+convs, (in, out) -> (out, in) for linears (``pos_embed`` included),
+``scale`` -> ``weight``, ``mean``/``var`` -> ``running_mean``/``running_var``.
+The key map is this module's own copy of ``pth_import._torch_key``. The
+input is the ``{'params', 'batch_stats'}`` tree with numpy leaves, so this
+module needs neither JAX nor flax.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterator, List, Mapping, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["state_dict_from_flax", "torch_key"]
+
+_SEG_MAP = {
+    "weight_net_fc": "weight_net.0",
+    "weight_net_norm": "weight_net.1",
+}
+# flax module names that flatten a nested torch container
+_SEG_REGEX = [(r"layers_blocks_(\d+)", r"layers.blocks.\1")]
+_LEAF_MAP = {
+    "kernel": "weight",
+    "scale": "weight",
+    "bias": "bias",
+    "mean": "running_mean",
+    "var": "running_var",
+}
+
+
+def torch_key(path: Tuple[str, ...]) -> str:
+    """Translate a flax variable path (collection dropped) to the torch key."""
+    segs: List[str] = []
+    for seg in path[:-1]:
+        if seg in _SEG_MAP:
+            segs.append(_SEG_MAP[seg])
+            continue
+        for pat, repl in _SEG_REGEX:
+            m = re.fullmatch(pat, seg)
+            if m:
+                segs.append(m.expand(repl))
+                break
+        else:
+            # list segments: layers_3 -> layers.3, blocks_0 -> blocks.0
+            m = re.fullmatch(r"(.+)_(\d+)", seg)
+            segs.append(f"{m.group(1)}.{m.group(2)}" if m else seg)
+    segs.append(_LEAF_MAP.get(path[-1], path[-1]))
+    return ".".join(segs)
+
+
+def _leaves(tree: Mapping[str, Any], prefix=()) -> Iterator[Tuple[tuple, Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{'params': ..., 'batch_stats': ...}`` (numpy leaves) -> state_dict.
+
+    Each BatchNorm also gets ``num_batches_tracked = 0``, so the result
+    loads with a strict ``load_state_dict``.
+    """
+    out: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, leaf in _leaves(variables.get(collection, {})):
+            arr = np.asarray(leaf)
+            if path[-1] == "kernel":
+                if arr.ndim == 4:  # conv HWIO -> OIHW
+                    arr = arr.transpose(3, 2, 0, 1)
+                elif arr.ndim == 2:  # linear (in, out) -> (out, in)
+                    arr = arr.T
+            key = torch_key(path)
+            out[key] = torch.from_numpy(np.array(arr))  # an owned, writable copy
+            if collection == "batch_stats" and path[-1] == "mean":
+                out[key[: -len("running_mean")] + "num_batches_tracked"] = (
+                    torch.tensor(0, dtype=torch.long))
+    return out

@@ -1,0 +1,285 @@
+"""Core AFF building blocks (counterpart of the JAX package's
+``models/layers.py``), inference side.
+
+Attribute names follow the reference torch module tree, so ``state_dict()``
+keys equal what the JAX package's ``ckpt/pth_import.py::_torch_key`` maps
+its flax paths to (``layers.0.blocks.0.attn.q.weight``,
+``layers.0.downsample.weight_net.0.weight``, ...).
+
+Compute-dtype semantics follow flax's ``dtype=``: parameters stay float32,
+matmuls and convolutions run in the compute dtype (explicit casts, no
+autocast), and LayerNorm, softmax, kNN and clustering run in float32.
+Dropout and DropPath are identities at eval; this slice is inference only.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.cluster_attention import fused_cluster_attention, offset_features
+from ..ops.cluster_gather import gather_clusters, gather_rows
+from ..ops.cluster_merge import fused_cluster_merge
+from ..ops.knn import nearest_other_distance
+
+__all__ = [
+    "Linear", "LayerNormFp32", "rel_pos_features", "Mlp", "ClusterAttention",
+    "ClusterTransformerBlock", "ClusterMerging", "PatchEmbed",
+]
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose product runs in ``compute_dtype`` (flax ``Dense``
+    with ``dtype=``): input, weight and bias are cast, params stay f32.
+    Initialised like the JAX package: truncated normal (std 0.02, +-2 std)
+    weights, zero bias."""
+
+    def __init__(self, in_features, out_features, compute_dtype=torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = compute_dtype
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        nn.init.trunc_normal_(self.weight, std=0.02, a=-0.04, b=0.04,
+                              generator=generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNormFp32(nn.Module):
+    """LayerNorm in float32 with the fast-variance form ``E[x^2]-E[x]^2``
+    (JAX package ``layers.py:170-175``); returns the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        var = ((x32 * x32).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y.to(x.dtype)
+
+
+def rel_pos_features(rel_pos: torch.Tensor, rel_pos_width: int):
+    """(dx, dy, dist, sin, cos) from table-frame coords ``pos_j - pos_i + R``
+    (JAX package ``layers.py:178-194``)."""
+    R = rel_pos_width
+    return offset_features(rel_pos[..., 0] - R, rel_pos[..., 1] - R)
+
+
+class Mlp(nn.Module):
+    """fc1 -> exact GELU -> fc2 (dropout is an identity at eval)."""
+
+    def __init__(self, dim, hidden, out, compute_dtype):
+        super().__init__()
+        self.fc1 = Linear(dim, hidden, compute_dtype)
+        self.fc2 = Linear(hidden, out, compute_dtype)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class ClusterAttention(nn.Module):
+    """Local attention over each token's nearest clusters (the fused kernel)
+    or, in global mode, dense attention over all tokens (plain torch)."""
+
+    def __init__(self, dim, num_heads, rel_pos_width,
+                 compute_dtype=torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.rel_pos_width = rel_pos_width
+        self.compute_dtype = compute_dtype
+        self.q = Linear(dim, dim, compute_dtype)
+        self.kv = Linear(dim, 2 * dim, compute_dtype)
+        self.pos_embed = Linear(5, num_heads, compute_dtype)
+        self.blank_k = nn.Parameter(torch.empty(dim))
+        self.blank_v = nn.Parameter(torch.empty(dim))
+        self.proj = Linear(dim, dim, compute_dtype)
+
+    def forward(self, feat, global_attn: bool, pe_feat=None,
+                nearest_cluster=None, cluster_size: int = 0, pos=None):
+        b, n, c = feat.shape
+        h = self.num_heads
+        c_ = c // h
+        q = self.q(feat) * c_**-0.5
+        kv = self.kv(feat)
+        if not global_attn:
+            out = fused_cluster_attention(
+                q.contiguous(), kv.contiguous(), nearest_cluster, pos,
+                self.pos_embed.weight.t(), self.pos_embed.bias,
+                self.blank_k.reshape(h, c_).t(), self.blank_v.reshape(h, c_),
+                h, cluster_size, self.rel_pos_width,
+            )
+        else:
+            dt = self.compute_dtype
+            q = q.reshape(b, n, h, c_).transpose(1, 2)  # b h n c_
+            kv = kv.reshape(b, n, h, 2, c_).permute(3, 0, 2, 1, 4)
+            key, v = kv[0], kv[1]
+            blank_attn = (
+                q * self.blank_k.to(q.dtype).reshape(1, h, 1, c_)
+            ).sum(-1, keepdim=True)  # b h n 1
+            bias = self.pos_embed(pe_feat.to(dt)).permute(0, 3, 1, 2)
+            attn = torch.matmul(q, key.transpose(-1, -2)) + bias
+            attn = torch.cat([attn, blank_attn], dim=-1)
+            attn = torch.softmax(attn.float(), dim=-1).to(dt)
+            blank_w = attn[..., -1:]
+            out = torch.matmul(attn[..., :-1], v)
+            out = out + blank_w * self.blank_v.to(dt).reshape(1, h, 1, c_)
+            out = out.transpose(1, 2).reshape(b, n, c)
+        return self.proj(out)
+
+
+class ClusterTransformerBlock(nn.Module):
+    """Pre-LN attention + MLP residual block."""
+
+    def __init__(self, dim, num_heads, mlp_ratio, layer_scale, rel_pos_width,
+                 compute_dtype=torch.float32):
+        super().__init__()
+        self.norm1 = LayerNormFp32(dim)
+        self.attn = ClusterAttention(dim, num_heads, rel_pos_width,
+                                     compute_dtype=compute_dtype)
+        self.norm2 = LayerNormFp32(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, compute_dtype)
+        self.use_layer_scale = layer_scale is not None and layer_scale > 0
+        if self.use_layer_scale:
+            self.gamma1 = nn.Parameter(torch.full((dim,), float(layer_scale)))
+            self.gamma2 = nn.Parameter(torch.full((dim,), float(layer_scale)))
+
+    def forward(self, feat, global_attn, pe_feat, nearest_cluster,
+                cluster_size, pos):
+        x = self.attn(self.norm1(feat), global_attn, pe_feat,
+                      nearest_cluster, cluster_size, pos)
+        if self.use_layer_scale:
+            feat = feat + self.gamma1.to(x.dtype) * x
+            y = self.mlp(self.norm2(feat))
+            return feat + self.gamma2.to(y.dtype) * y
+        feat = feat + x
+        return feat + self.mlp(self.norm2(feat))
+
+
+class ClusterMerging(nn.Module):
+    """Adaptive downsampling (JAX package ``layers.py:513-705``, fused-merge
+    route): grid prior + alpha * detached learned importance, coarse-grid
+    reserve tokens forced in, then PointConv over each centre's nearest
+    clusters with the fused merge kernel."""
+
+    def __init__(self, dim, out_dim, alpha=4.0, ds_rate=0.25, reserve_on=True,
+                 rel_pos_width=55, compute_dtype=torch.float32):
+        super().__init__()
+        self.alpha = alpha
+        self.ds_rate = ds_rate
+        self.reserve_on = reserve_on
+        self.rel_pos_width = rel_pos_width
+        self.compute_dtype = compute_dtype
+        self.weight_net = nn.Sequential(
+            Linear(5, 4, compute_dtype), LayerNormFp32(4)
+        )
+        self.norm = LayerNormFp32(4 * dim)
+        self.linear = Linear(4 * dim, out_dim, compute_dtype)
+
+    def forward(self, pos, feat, cluster_mask, learned_prob, stride: int,
+                reserve_num: int, nearest_cluster, cluster_size: int):
+        b, n, c = feat.shape
+        d = pos.shape[2]
+        keep_num = int(n * self.ds_rate)
+
+        # --- grid prior (aff_transformer.py:295-301) ---
+        if stride == 2:
+            grid_prob = ((pos % stride).sum(-1) == 0).float()
+        else:
+            min_dist = nearest_other_distance(pos)  # b x n
+            ada_stride = 2.0 ** (torch.ceil(torch.log2(min_dist)) + 1)
+            grid_prob = (
+                (pos.int() % ada_stride[..., None].int()).sum(-1) == 0
+            ).float()
+        final_prob = grid_prob + (
+            learned_prob.detach().reshape(b, n).float() * self.alpha)
+
+        # --- reserve tokens on a coarse grid ---
+        if self.reserve_on:
+            reserve_mask = ((pos % (stride * 2)).sum(-1) == 0).float()
+            final_prob = final_prob + reserve_mask * (-100.0)
+            sample_num = keep_num - reserve_num
+        else:
+            sample_num = keep_num
+
+        # --- top-k centres: a stable descending sort puts the lower index
+        # first on ties, as jax.lax.top_k does (torch.topk promises no
+        # order); reserve indices come out in index order ---
+        sample_idx = torch.sort(final_prob, dim=-1, descending=True,
+                                stable=True)[1][:, :sample_num]
+        if self.reserve_on:
+            reserve_idx = torch.sort(reserve_mask, dim=-1, descending=True,
+                                     stable=True)[1][:, :reserve_num]
+            idx = torch.cat([sample_idx, reserve_idx], dim=-1)
+        else:
+            idx = sample_idx
+        if idx.shape[1] != keep_num:
+            raise ValueError(f"selected {idx.shape[1]} centres != {keep_num}")
+
+        new_pos = gather_rows(pos, idx)
+        sel_mask = None if cluster_mask is None else gather_rows(cluster_mask, idx)
+        sel_ncc = gather_rows(nearest_cluster, idx).contiguous()
+
+        R = self.rel_pos_width
+        pos_g = gather_clusters(pos[:, None], sel_ncc, cluster_size)[:, 0]
+        sel_rel = rel_pos_features(pos_g - (new_pos[:, :, None, :] - R), R)
+
+        wt = self.weight_net[0](sel_rel.to(self.compute_dtype))
+        weights = F.gelu(self.weight_net[1](wt))  # b x n' x m x 4
+        inner_ch = weights.shape[-1]
+        # learned_prob is not detached here: pointconv weights carry it
+        lp = gather_clusters(learned_prob[:, None], sel_ncc, cluster_size)[:, 0]
+        if sel_mask is not None:
+            lp = lp * sel_mask[..., None].to(lp.dtype)
+        weights = weights * lp.to(weights.dtype)
+
+        merged = fused_cluster_merge(
+            weights.contiguous(), feat.to(weights.dtype).contiguous(),
+            sel_ncc, cluster_size,
+        )
+        merged = merged.reshape(b, keep_num, inner_ch * c)
+        return new_pos, self.linear(self.norm(merged))
+
+
+class PatchEmbed(nn.Module):
+    """Two stride-2 3x3 convs (NCHW) with BatchNorm (running stats at eval)
+    and GELU between, then LayerNorm; emits row-major tokens and their
+    integer grid positions (x, y) (JAX package ``layers.py:708-743``)."""
+
+    def __init__(self, embed_dim=32, use_norm=True, compute_dtype=torch.float32):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.proj1 = nn.Conv2d(3, embed_dim // 2, 3, stride=2, padding=1)
+        self.bn = nn.BatchNorm2d(embed_dim // 2, eps=1e-5, momentum=0.1)
+        self.proj2 = nn.Conv2d(embed_dim // 2, embed_dim, 3, stride=2,
+                               padding=1)
+        self.norm = LayerNormFp32(embed_dim) if use_norm else None
+
+    def _conv(self, conv, x):
+        dt = self.compute_dtype
+        return F.conv2d(x.to(dt), conv.weight.to(dt), conv.bias.to(dt),
+                        stride=conv.stride, padding=conv.padding)
+
+    def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
+        x = self._conv(self.proj1, x)
+        x = F.batch_norm(x.float(), self.bn.running_mean, self.bn.running_var,
+                         self.bn.weight, self.bn.bias, False, 0.0, self.bn.eps)
+        x = self._conv(self.proj2, F.gelu(x))
+        b, c, h, w = x.shape
+        feat = x.flatten(2).transpose(1, 2)  # b x (h*w) x c, row-major
+        if self.norm is not None:
+            feat = self.norm(feat)
+        ys, xs = torch.meshgrid(torch.arange(h, device=x.device),
+                                torch.arange(w, device=x.device), indexing="ij")
+        pos = torch.stack([xs, ys], dim=2).reshape(1, h * w, 2).float()
+        return pos.expand(b, h * w, 2), feat, h, w

@@ -1,0 +1,96 @@
+"""Lazy build of the CUDA kernels in ``ml_autofocusformermod_torch/csrc``.
+
+Each ``csrc/<name>.cu`` has a plain C interface (one entry point per kernel
+that returns ``cudaGetLastError()``) and is compiled by ``nvcc`` for
+``sm_90a`` into its own shared library, loaded with ``ctypes``. Nothing is
+built when the package is imported: the first CUDA call of any kernel
+builds all sources at once, one ``nvcc`` process per source, all started
+together. Libraries land in ``csrc/build/`` (listed in ``.gitignore``)
+under a name that carries a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is reused. A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+__all__ = ["SOURCES", "build_all", "library"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+SOURCES = ("cluster_attention", "cluster_merge")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+            "are built from source at first use"
+        )
+    return path
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}.{digest[:16]}.so"
+
+
+def build_all() -> Dict[str, dict]:
+    """Build (or reuse) every kernel library and load it.
+
+    Returns ``{name: {"seconds": float, "cached": bool, "log": str}}``;
+    ``log`` holds nvcc's output, including ``ptxas -v`` register and
+    shared-memory counts.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    info: Dict[str, dict] = {}
+    procs = {}
+    for name in SOURCES:
+        target = _target(name)
+        if target.exists():
+            info[name] = {"seconds": 0.0, "cached": True, "log": ""}
+            continue
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True),
+            time.perf_counter(), tmp, target,
+        )
+    failed = []
+    for name, (proc, t0, tmp, target) in procs.items():
+        log, _ = proc.communicate()
+        info[name] = {"seconds": time.perf_counter() - t0, "cached": False,
+                      "log": log}
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed\n" + "\n".join(failed))
+    for name in SOURCES:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(_target(name)))
+    return info
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, building all on first use."""
+    if name not in _LIBS:
+        build_all()
+    return _LIBS[name]

@@ -57,3 +57,11 @@ def ref_point_utils():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA kernels); "
+        "skips without one",
+    )
