@@ -1,5 +1,6 @@
 """AutoFocusFormer: 4-stage off-grid vision backbone (counterpart of the JAX
-package's ``models/aff.py``, ``use_pallas=True`` route), inference side.
+package's ``models/aff.py``, ``use_pallas=True`` route). The JAX
+``training`` flag is ``module.train()``.
 
 Stage 1 (tokens on the regular grid) takes its clustering and kNN as host
 constants cached on the device (``ops/sfc.py::grid_tensors``); later local
@@ -14,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -39,17 +41,21 @@ class BasicLayer(nn.Module):
                  nbhd_size: int, depth: int, num_heads: int, mlp_ratio: float,
                  alpha: float = 4.0, ds_rate: float = 0.25,
                  reserve_on: bool = True, layer_scale: float = 0.0,
-                 rel_pos_width: int = 55, compute_dtype=torch.float32):
+                 rel_pos_width: int = 55, compute_dtype=torch.float32,
+                 drop: float = 0.0, attn_drop: float = 0.0,
+                 drop_path: Sequence[float] = ()):
         super().__init__()
         if cluster_size <= 1:
             raise ValueError("cluster_size must be > 1")
         self.cluster_size = cluster_size
         self.nbhd_size = nbhd_size
         self.rel_pos_width = rel_pos_width
+        drop_path = list(drop_path) or [0.0] * depth
         self.blocks = nn.ModuleList(
             ClusterTransformerBlock(dim, num_heads, mlp_ratio, layer_scale,
-                                    rel_pos_width, compute_dtype)
-            for _ in range(depth)
+                                    rel_pos_width, compute_dtype, drop,
+                                    attn_drop, drop_path[i])
+            for i in range(depth)
         )
         self.prob_net = None
         self.downsample = None
@@ -89,10 +95,6 @@ class BasicLayer(nn.Module):
             feat = blk(feat, global_attn, pe_feat, ncc, m, pos)
 
         if self.downsample is not None:
-            if global_attn:
-                raise NotImplementedError(
-                    "a global-attention stage followed by a downsample is not "
-                    "ported (no AFF preset has one); see ROADMAP.md")
             learned_prob = torch.sigmoid(self.prob_net(feat))
             reserve_num = (math.ceil(h / (stride * 2))
                            * math.ceil(w / (stride * 2)))
@@ -117,13 +119,17 @@ class AutoFocusFormer(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12, 24),
                  mlp_ratio: float = 2.0, patch_norm: bool = True,
                  layer_scale: float = 0.0, img_size: int = 224,
-                 compute_dtype=torch.float32):
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0, compute_dtype=torch.float32):
         super().__init__()
         self.num_classes = num_classes
         self.compute_dtype = compute_dtype
         R = img_size // 4 - 1  # aff_transformer.py:20
         self.patch_embed = PatchEmbed(embed_dim[0], patch_norm, compute_dtype)
+        self.pos_drop = nn.Dropout(drop_rate)
         num_layers = len(depths)
+        # stochastic depth rises linearly over the blocks (aff.py:335)
+        dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         self.layers = nn.ModuleList(
             BasicLayer(
                 dim=int(embed_dim[i]),
@@ -132,7 +138,9 @@ class AutoFocusFormer(nn.Module):
                 depth=depths[i], num_heads=num_heads[i], mlp_ratio=mlp_ratio,
                 alpha=alpha, ds_rate=ds_rate, reserve_on=reserve_on,
                 layer_scale=layer_scale, rel_pos_width=R,
-                compute_dtype=compute_dtype,
+                compute_dtype=compute_dtype, drop=drop_rate,
+                attn_drop=attn_drop_rate,
+                drop_path=dpr[sum(depths[:i]):sum(depths[:i + 1])],
             )
             for i in range(num_layers)
         )
@@ -162,6 +170,7 @@ class AutoFocusFormer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (b, 3, H, W) -> logits (b, num_classes)."""
         pos, feat, h, w = self.patch_embed(x)
+        feat = self.pos_drop(feat)
         for i, layer in enumerate(self.layers):
             pos, feat = layer(pos, feat, h, w, on_grid=i == 0,
                               stride=2 ** (i + 1))

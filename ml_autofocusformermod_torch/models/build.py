@@ -17,10 +17,14 @@ DTYPES = {
 
 
 def build_model(config, device="cuda", seed=None):
-    """Instantiate ``config.MODEL.TYPE`` on ``device`` in eval mode.
+    """Instantiate ``config.MODEL.TYPE`` on ``device`` in eval mode (call
+    ``.train()`` for the JAX package's ``training=True``).
 
     ``seed`` (default ``config.SEED``) drives the random init through a
-    ``torch.Generator``. The compute dtype is ``config.TPU.COMPUTE_DTYPE``.
+    ``torch.Generator``. The compute dtype is ``config.TPU.COMPUTE_DTYPE``;
+    the dropout rates are ``MODEL.DROP_RATE``, ``MODEL.DROP_PATH_RATE`` and
+    ``MODEL.ATTN_DROP_RATE`` (absent from the config tree, so 0, as the JAX
+    package's ``build_model`` leaves it).
     """
     dev = resolve_device(device)
     model_type = config.MODEL.TYPE
@@ -49,6 +53,9 @@ def build_model(config, device="cuda", seed=None):
         patch_norm=aff.PATCH_NORM,
         layer_scale=aff.LAYER_SCALE,
         img_size=config.DATA.IMG_SIZE,
+        drop_rate=config.MODEL.DROP_RATE,
+        attn_drop_rate=config.MODEL.get("ATTN_DROP_RATE", 0.0),
+        drop_path_rate=config.MODEL.DROP_PATH_RATE,
         compute_dtype=DTYPES[dtype_name],
     )
     gen = torch.Generator().manual_seed(config.SEED if seed is None else seed)

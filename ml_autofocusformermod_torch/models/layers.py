@@ -9,7 +9,9 @@ its flax paths to (``layers.0.blocks.0.attn.q.weight``,
 Compute-dtype semantics follow flax's ``dtype=``: parameters stay float32,
 matmuls and convolutions run in the compute dtype (explicit casts, no
 autocast), and LayerNorm, softmax, kNN and clustering run in float32.
-Dropout and DropPath are identities at eval; this slice is inference only.
+The JAX package's ``training`` flag is ``module.train()``: in training mode
+Dropout and DropPath are active and PatchEmbed's BatchNorm normalises with
+the batch statistics and updates its running stats with flax's semantics.
 """
 
 from __future__ import annotations
@@ -23,11 +25,13 @@ import torch.nn.functional as F
 from ..ops.cluster_attention import fused_cluster_attention, offset_features
 from ..ops.cluster_gather import gather_clusters, gather_rows
 from ..ops.cluster_merge import fused_cluster_merge
+from ..ops.clusten import wf_contract
 from ..ops.knn import nearest_other_distance
 
 __all__ = [
-    "Linear", "LayerNormFp32", "rel_pos_features", "Mlp", "ClusterAttention",
-    "ClusterTransformerBlock", "ClusterMerging", "PatchEmbed",
+    "Linear", "LayerNormFp32", "rel_pos_features", "DropPath", "Mlp",
+    "ClusterAttention", "ClusterTransformerBlock", "ClusterMerging",
+    "PatchEmbed", "batch_norm_train",
 ]
 
 
@@ -76,26 +80,61 @@ def rel_pos_features(rel_pos: torch.Tensor, rel_pos_width: int):
     return offset_features(rel_pos[..., 0] - R, rel_pos[..., 1] - R)
 
 
-class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2 (dropout is an identity at eval)."""
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (timm ``DropPath``, JAX package
+    ``layers.py:197-210``): in training mode each sample is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, else zeroed.
 
-    def __init__(self, dim, hidden, out, compute_dtype):
+    The mask is drawn from ``generator`` (a ``torch.Generator`` on the
+    input's device, set by the trainer) or, when it is None, from torch's
+    global generator.
+    """
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        u = torch.rand(shape, generator=self.generator, device=x.device)
+        mask = u < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
+class Mlp(nn.Module):
+    """fc1 -> exact GELU -> dropout -> fc2 -> dropout (JAX package
+    ``layers.py:239-261``)."""
+
+    def __init__(self, dim, hidden, out, compute_dtype, drop: float = 0.0):
         super().__init__()
         self.fc1 = Linear(dim, hidden, compute_dtype)
         self.fc2 = Linear(hidden, out, compute_dtype)
+        self.drop = nn.Dropout(drop)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return self.drop(self.fc2(self.drop(F.gelu(self.fc1(x)))))
 
 
 class ClusterAttention(nn.Module):
     """Local attention over each token's nearest clusters (the fused kernel)
-    or, in global mode, dense attention over all tokens (plain torch)."""
+    or, in global mode, dense attention over all tokens (plain torch).
+
+    ``attn_drop`` drops attention probabilities in training mode: in the
+    global mode with ``nn.Dropout``; in the local mode the fused kernels do
+    not port it yet and raise (ROADMAP.md queue B item 7).
+    """
 
     def __init__(self, dim, num_heads, rel_pos_width,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_drop = nn.Dropout(attn_drop)
+        self.proj_drop = nn.Dropout(proj_drop)
         self.rel_pos_width = rel_pos_width
         self.compute_dtype = compute_dtype
         self.q = Linear(dim, dim, compute_dtype)
@@ -118,6 +157,7 @@ class ClusterAttention(nn.Module):
                 self.pos_embed.weight.t(), self.pos_embed.bias,
                 self.blank_k.reshape(h, c_).t(), self.blank_v.reshape(h, c_),
                 h, cluster_size, self.rel_pos_width,
+                drop_rate=self.attn_drop.p if self.training else 0.0,
             )
         else:
             dt = self.compute_dtype
@@ -131,24 +171,28 @@ class ClusterAttention(nn.Module):
             attn = torch.matmul(q, key.transpose(-1, -2)) + bias
             attn = torch.cat([attn, blank_attn], dim=-1)
             attn = torch.softmax(attn.float(), dim=-1).to(dt)
+            attn = self.attn_drop(attn)
             blank_w = attn[..., -1:]
             out = torch.matmul(attn[..., :-1], v)
             out = out + blank_w * self.blank_v.to(dt).reshape(1, h, 1, c_)
             out = out.transpose(1, 2).reshape(b, n, c)
-        return self.proj(out)
+        return self.proj_drop(self.proj(out))
 
 
 class ClusterTransformerBlock(nn.Module):
     """Pre-LN attention + MLP residual block."""
 
     def __init__(self, dim, num_heads, mlp_ratio, layer_scale, rel_pos_width,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: float = 0.0):
         super().__init__()
         self.norm1 = LayerNormFp32(dim)
         self.attn = ClusterAttention(dim, num_heads, rel_pos_width,
-                                     compute_dtype=compute_dtype)
+                                     compute_dtype=compute_dtype,
+                                     attn_drop=attn_drop, proj_drop=drop)
+        self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNormFp32(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, compute_dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, compute_dtype, drop)
         self.use_layer_scale = layer_scale is not None and layer_scale > 0
         if self.use_layer_scale:
             self.gamma1 = nn.Parameter(torch.full((dim,), float(layer_scale)))
@@ -159,18 +203,20 @@ class ClusterTransformerBlock(nn.Module):
         x = self.attn(self.norm1(feat), global_attn, pe_feat,
                       nearest_cluster, cluster_size, pos)
         if self.use_layer_scale:
-            feat = feat + self.gamma1.to(x.dtype) * x
+            feat = feat + self.drop_path(self.gamma1.to(x.dtype) * x)
             y = self.mlp(self.norm2(feat))
-            return feat + self.gamma2.to(y.dtype) * y
-        feat = feat + x
-        return feat + self.mlp(self.norm2(feat))
+            return feat + self.drop_path(self.gamma2.to(y.dtype) * y)
+        feat = feat + self.drop_path(x)
+        return feat + self.drop_path(self.mlp(self.norm2(feat)))
 
 
 class ClusterMerging(nn.Module):
     """Adaptive downsampling (JAX package ``layers.py:513-705``, fused-merge
     route): grid prior + alpha * detached learned importance, coarse-grid
     reserve tokens forced in, then PointConv over each centre's nearest
-    clusters with the fused merge kernel."""
+    clusters with the fused merge kernel (after a global-attention stage,
+    ``nearest_cluster`` is None and the neighbourhood is every token, a
+    plain contraction)."""
 
     def __init__(self, dim, out_dim, alpha=4.0, ds_rate=0.25, reserve_on=True,
                  rel_pos_width=55, compute_dtype=torch.float32):
@@ -227,33 +273,69 @@ class ClusterMerging(nn.Module):
             raise ValueError(f"selected {idx.shape[1]} centres != {keep_num}")
 
         new_pos = gather_rows(pos, idx)
-        sel_mask = None if cluster_mask is None else gather_rows(cluster_mask, idx)
-        sel_ncc = gather_rows(nearest_cluster, idx).contiguous()
-
         R = self.rel_pos_width
-        pos_g = gather_clusters(pos[:, None], sel_ncc, cluster_size)[:, 0]
+        if nearest_cluster is None:
+            # a global-attention stage: every centre's neighbourhood is all
+            # n tokens (JAX package aff.py:260-270, clusten_wf route)
+            pos_g = pos[:, None].expand(b, keep_num, n, d)
+            lp = learned_prob[:, None].expand(b, keep_num, n, 1)
+            sel_mask = sel_ncc = None
+        else:
+            sel_mask = (None if cluster_mask is None
+                        else gather_rows(cluster_mask, idx))
+            sel_ncc = gather_rows(nearest_cluster, idx).contiguous()
+            pos_g = gather_clusters(pos[:, None], sel_ncc, cluster_size)[:, 0]
+            # learned_prob is not detached here: pointconv weights carry it
+            lp = gather_clusters(learned_prob[:, None], sel_ncc,
+                                 cluster_size)[:, 0]
         sel_rel = rel_pos_features(pos_g - (new_pos[:, :, None, :] - R), R)
 
         wt = self.weight_net[0](sel_rel.to(self.compute_dtype))
         weights = F.gelu(self.weight_net[1](wt))  # b x n' x m x 4
         inner_ch = weights.shape[-1]
-        # learned_prob is not detached here: pointconv weights carry it
-        lp = gather_clusters(learned_prob[:, None], sel_ncc, cluster_size)[:, 0]
         if sel_mask is not None:
             lp = lp * sel_mask[..., None].to(lp.dtype)
         weights = weights * lp.to(weights.dtype)
 
-        merged = fused_cluster_merge(
-            weights.contiguous(), feat.to(weights.dtype).contiguous(),
-            sel_ncc, cluster_size,
-        )
+        if sel_ncc is None:
+            merged = wf_contract(
+                weights, feat.to(weights.dtype)[:, None].expand(
+                    b, keep_num, n, c))
+        else:
+            merged = fused_cluster_merge(
+                weights.contiguous(), feat.to(weights.dtype).contiguous(),
+                sel_ncc, cluster_size,
+            )
         merged = merged.reshape(b, keep_num, inner_ch * c)
         return new_pos, self.linear(self.norm(merged))
 
 
+def batch_norm_train(x, bn: nn.BatchNorm2d, momentum: float = 0.9):
+    """BatchNorm over (N, H, W) with batch statistics, as flax's
+    ``nn.BatchNorm(use_running_average=False, momentum=0.9)`` computes it
+    (JAX package ``layers.py:726-729``): mean and the fast, biased variance
+    ``E[x^2] - E[x]^2`` (clamped at 0) in float32, ``y = (x - mean) *
+    (rsqrt(var + eps) * scale) + bias``. The running stats are updated in
+    place as ``ra = momentum * ra + (1 - momentum) * stat`` with the biased
+    variance, written out by hand: ``F.batch_norm(training=True)`` would
+    store the unbiased one. Returns float32."""
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 2, 3))
+    mean2 = (x32 * x32).mean(dim=(0, 2, 3))
+    var = torch.clamp_min(mean2 - mean * mean, 0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(momentum * bn.running_mean
+                              + (1.0 - momentum) * mean)
+        bn.running_var.copy_(momentum * bn.running_var
+                             + (1.0 - momentum) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return ((x32 - mean[:, None, None]) * mul[:, None, None]
+            + bn.bias[:, None, None])
+
+
 class PatchEmbed(nn.Module):
-    """Two stride-2 3x3 convs (NCHW) with BatchNorm (running stats at eval)
-    and GELU between, then LayerNorm; emits row-major tokens and their
+    """Two stride-2 3x3 convs (NCHW) with BatchNorm (batch statistics in
+    training mode, running stats at eval) and GELU between, then LayerNorm; emits row-major tokens and their
     integer grid positions (x, y) (JAX package ``layers.py:708-743``)."""
 
     def __init__(self, embed_dim=32, use_norm=True, compute_dtype=torch.float32):
@@ -272,8 +354,12 @@ class PatchEmbed(nn.Module):
 
     def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
         x = self._conv(self.proj1, x)
-        x = F.batch_norm(x.float(), self.bn.running_mean, self.bn.running_var,
-                         self.bn.weight, self.bn.bias, False, 0.0, self.bn.eps)
+        if self.training:
+            x = batch_norm_train(x, self.bn)
+        else:
+            x = F.batch_norm(x.float(), self.bn.running_mean,
+                             self.bn.running_var, self.bn.weight, self.bn.bias,
+                             False, 0.0, self.bn.eps)
         x = self._conv(self.proj2, F.gelu(x))
         b, c, h, w = x.shape
         feat = x.flatten(2).transpose(1, 2)  # b x (h*w) x c, row-major

@@ -11,7 +11,9 @@ __all__ = ["wf_contract"]
 def wf_contract(weights: torch.Tensor, feat_g: torch.Tensor) -> torch.Tensor:
     """``out[b,n,ic,c] = sum_m weights[b,n,m,ic] * feat_g[b,n,m,c]``.
 
-    Accumulates in float32 and returns ``weights``' dtype.
+    Accumulates in float32 (float64 for float64 inputs) and returns
+    ``weights``' dtype.
     """
-    out = torch.einsum("bnmi,bnmc->bnic", weights.float(), feat_g.float())
+    acc = torch.promote_types(weights.dtype, torch.float32)
+    out = torch.einsum("bnmi,bnmc->bnic", weights.to(acc), feat_g.to(acc))
     return out.to(weights.dtype)

@@ -43,7 +43,7 @@ def test_patch_embed_matches_jax():
     with jax.default_matmul_precision("highest"):
         r_pos, r_feat, rh, rw = mod.apply(variables, jnp.asarray(x))
 
-    port = tl.PatchEmbed(embed_dim=16)
+    port = tl.PatchEmbed(embed_dim=16).eval()  # JAX: training=False
     port.load_state_dict(state_dict_from_flax(variables))
     t_pos, t_feat, th, tw = port(torch.from_numpy(x).permute(0, 3, 1, 2))
     assert (th, tw) == (rh, rw) == (8, 8)
