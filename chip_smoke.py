@@ -14,16 +14,29 @@ Phases, one JSON line each:
    in f32 on the same bf16 inputs, max abs <= 2e-2 * max|ref|); then, at
    b = 128 bf16, the shapes of the throughput run, the same bf16 check and
    the kernel's and the plain version's median time (CUDA events) beside
-   the least time the card could take;
+   the least time the card could take and the time of the kernel it
+   replaced, the one-warp-per-(query, head) design (``prev_ms``, as
+   recorded in PERF.md, not measured here); the attention kernel is timed
+   as the model
+   calls it, with the stage's tile metadata made beforehand, and the
+   metadata's own time is ``tile_metadata_ms``; then the attention stress
+   shapes (``STRESS``:
+   n = 1921 with clamp_width 9, cs = 1 with nnc = 48, random ncc whose
+   tile unions span several shared-memory chunks, AFF-Base-384's cs = 24
+   with nnc = 6, heads of c_ = 556 and 1440, m = 760 with repeated
+   clusters), b = 2, fp32 and bf16;
 4. kernel_check, backward: the same for the two backward kernels against
    their plain backwards, every output (attention: dq, dkv, d_pe_kernel,
    d_pe_bias, d_blank_k, d_blank_v; merge: dw, dfeat) at the same six
-   shapes, b = 8 fp32 and bf16, then b = 128 bf16 with times and bound;
+   shapes, b = 8 fp32 and bf16, then b = 128 bf16 with times, bound and
+   ``prev_ms``, then the attention stress shapes as in 3 (the plain
+   backward in f64);
 5. model_check: AFF-Mini 224 built through ``build_model`` and the port's
    ``aff_mini.yaml`` from a fixed seed, fp32, b = 2: the GPU forward (CUDA
    kernels, TF32 off) against the CPU forward (plain versions) on the same
    weights, logits within 1e-3 and the same argmax; 10 attention and 3
-   merge launches per forward;
+   merge launches per forward, and the attention's tile metadata made once
+   per stage (``tile_metadata`` calls, the grid stage's cached);
 6. train_check: one ``make_train_step`` step of the same model, fp32,
    b = 2, on the GPU (kernels, TF32 off) against the same step on the CPU
    (plain versions) from the same weights: loss and grad_norm within 1e-4
@@ -81,6 +94,32 @@ ATTN_STAGES = [("stage1", 3136, 2, 32, 2), ("stage2", 784, 4, 128, 2),
 MERGES = [("merge1", 3136, 784, 32), ("merge2", 784, 196, 128),
           ("merge3", 196, 49, 256)]
 CS, NNC, IC = 8, 6, 4
+# the attention kernels these replaced (one warp per (query, head)) at
+# these b128 bf16 shapes, ms per call as recorded by an earlier run of this
+# script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6), not
+# measured in this run
+PREV_MS = {
+    ("cluster_attention_fwd", "stage1"): 1.847,
+    ("cluster_attention_fwd", "stage2"): 1.051,
+    ("cluster_attention_fwd", "stage3"): 0.530,
+    ("cluster_attention_bwd", "stage1"): 4.544,
+    ("cluster_attention_bwd", "stage2"): 3.267,
+    ("cluster_attention_bwd", "stage3"): 1.636,
+}
+# attention stress shapes, b = 2: (name, n, heads, c, cs, nnc, geometry,
+# rel_width, clamp_width). "clustered": positions on a 56 x 56 canvas,
+# clustered and kNN'd by the port; "random": each row's nnc clusters drawn
+# at random, so a tile's union holds most of the image's clusters;
+# "repeats": drawn with replacement, so rows list clusters more than once.
+# AFF-Base-384 has cs = 24 and nnc = 6; c_ = 556 and 1440 and m = 760 are
+# the widest the one-warp-per-(query, head) kernels took.
+STRESS = [("n1921_clamp9", 1921, 8, 256, 8, 6, "clustered", 4, 9),
+          ("cs1_nnc48", 784, 4, 128, 1, 48, "clustered", 55, 0),
+          ("random_ncc", 784, 4, 128, 8, 6, "random", 55, 0),
+          ("aff_base384", 2304, 8, 256, 24, 6, "clustered", 95, 0),
+          ("wide_c556", 196, 2, 1112, 8, 6, "clustered", 55, 0),
+          ("wide_c1440", 196, 1, 1440, 8, 6, "clustered", 55, 0),
+          ("m760_repeats", 990, 2, 32, 40, 19, "repeats", 55, 0)]
 
 
 def emit(obj) -> None:
@@ -138,7 +177,7 @@ def nbytes(*tensors) -> int:
 
 # ------------------------------------------------------------- inputs ----
 
-def clustered_stage(torch, gen, b, n, hw, dev):
+def clustered_stage(torch, gen, b, n, hw, dev, cs=CS, nnc=NNC):
     """Positions of a later stage (distinct cells of an hw x hw canvas),
     clustered and kNN'd by the port: (pos (b,n,2), ncc (b,n,nnc) int32)."""
     from ml_autofocusformermod_torch.ops.knn import knn
@@ -147,8 +186,8 @@ def clustered_stage(torch, gen, b, n, hw, dev):
     cells = torch.stack([torch.randperm(hw * hw, generator=gen)[:n]
                          for _ in range(b)])
     pos = torch.stack([cells % hw, cells // hw], -1).float().to(dev)
-    pos, mean, _, _, _ = space_filling_cluster(pos, CS, hw, hw)
-    return pos.contiguous(), knn(pos, mean, NNC).contiguous()
+    pos, mean, _, _, _ = space_filling_cluster(pos, cs, hw, hw)
+    return pos.contiguous(), knn(pos, mean, nnc).contiguous()
 
 
 def stage_geometry(torch, gen, b, n, dev):
@@ -173,6 +212,25 @@ def attention_inputs(torch, gen, b, n, h, c, dev, dtype):
         pe_kernel=rnd(5, h, scale=0.1), pe_bias=rnd(h, scale=0.1),
         blank_k=rnd(c_, h, scale=0.5), blank_v=rnd(h, c_, scale=0.5),
     )
+
+
+def stress_inputs(torch, gen, shape, b, dev, dtype):
+    """Attention inputs of one ``STRESS`` shape and its (h, cs, R,
+    clamp_width)."""
+    _, n, h, c, cs, nnc, geometry, R, clamp = shape
+    a = attention_inputs(torch, gen, b, n, h, c, dev, dtype)
+    if geometry == "clustered":
+        a["pos"], a["ncc"] = clustered_stage(torch, gen, b, n, 56, dev, cs,
+                                             nnc)
+    elif geometry == "random":
+        k = -(-n // cs)
+        a["ncc"] = torch.argsort(torch.rand(b, n, k, generator=gen), -1)[
+            ..., :nnc].to(dev, torch.int32).contiguous()
+    else:
+        k = -(-n // cs)
+        a["ncc"] = torch.randint(0, k, (b, n, nnc), generator=gen).to(
+            dev, torch.int32)
+    return a, (h, cs, R, clamp)
 
 
 def merge_inputs(torch, gen, b, n, n_, c, dev, dtype):
@@ -283,6 +341,12 @@ def phase_build():
                          for k, v in info.items()}})
 
 
+def prev(kernel, row):
+    """The replaced kernel's recorded time for the row's shape."""
+    return {"prev_ms": PREV_MS[(kernel, row["shape"])],
+            "prev_ms_from": "recorded, not this run (PERF.md section 6)"}
+
+
 def check(name, dtype_name, out, ref):
     err = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
@@ -295,9 +359,21 @@ def check(name, dtype_name, out, ref):
     return err
 
 
+def emit_union(torch, name, ncc):
+    """The tile unions of a stress shape: clusters per 64-query tile."""
+    from ml_autofocusformermod_torch.ops.cluster_attention import (
+        tile_metadata,
+    )
+
+    count = tile_metadata(ncc).ucount.float()
+    emit({"phase": "stress_unions", "shape": name,
+          "union_clusters_max": int(count.max().item()),
+          "union_clusters_mean": count.mean().item()})
+
+
 def phase_kernels(torch):
     from ml_autofocusformermod_torch.ops.cluster_attention import (
-        cluster_attention_reference, fused_cluster_attention,
+        cluster_attention_reference, fused_cluster_attention, tile_metadata,
     )
     from ml_autofocusformermod_torch.ops.cluster_merge import (
         cluster_merge_reference, fused_cluster_merge,
@@ -322,11 +398,15 @@ def phase_kernels(torch):
                               str(dtype).split(".")[1], out, ref))
         a = attention_inputs(torch, gen, 128, n, h, c, dev, torch.bfloat16)
         args = [a[k] for k in names]
-        out = fused_cluster_attention(*args, h, CS, R)
+        # as the model calls it: the stage's tile metadata made once
+        meta = tile_metadata(a["ncc"])
+        out = fused_cluster_attention(*args, h, CS, R, meta=meta)
         ref = cluster_attention_reference(*args, h, CS, R)  # f32 inside
         torch.cuda.synchronize()
         errs.append(check(f"attention_{label}_b128", "bfloat16", out, ref))
-        ms = time_ms(lambda: fused_cluster_attention(*args, h, CS, R))
+        ms = time_ms(lambda: fused_cluster_attention(*args, h, CS, R,
+                                                     meta=meta))
+        meta_ms = time_ms(lambda: tile_metadata(a["ncc"]))
         plain = time_ms(lambda: cluster_attention_reference(*args, h, CS, R),
                         iters=5, warmup=1)
         moved, flops = attn_work(torch, a, h, CS)
@@ -336,7 +416,21 @@ def phase_kernels(torch):
             ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, bytes=moved,
             flops=flops, max_abs_err=max(errs)))
         emit({"phase": "kernel_time", "kernel": "cluster_attention_fwd",
-              **rows["attention"][-1]})
+              **rows["attention"][-1], "tile_metadata_ms": meta_ms,
+              **prev("cluster_attention_fwd", rows["attention"][-1])})
+    for shape in STRESS:
+        for dtype in (torch.float32, torch.bfloat16):
+            a, (h, cs, R, clamp) = stress_inputs(torch, gen, shape, 2, dev,
+                                                 dtype)
+            out = fused_cluster_attention(*(a[k] for k in names), h, cs, R,
+                                          clamp)
+            ref_args = dict(a, q=a["q"].float(), kv=a["kv"].float())
+            ref = cluster_attention_reference(
+                *(ref_args[k] for k in names), h, cs, R, clamp)
+            torch.cuda.synchronize()
+            check(f"attention_stress_{shape[0]}", str(dtype).split(".")[1],
+                  out, ref)
+        emit_union(torch, shape[0], a["ncc"])
     for label, n, n_, c in MERGES:
         errs = []
         for dtype in (torch.float32, torch.bfloat16):
@@ -368,6 +462,7 @@ def phase_kernels(torch):
 def phase_kernels_bwd(torch):
     from ml_autofocusformermod_torch.ops.cluster_attention import (
         cluster_attention_backward, cluster_attention_backward_reference,
+        tile_metadata,
     )
     from ml_autofocusformermod_torch.ops.cluster_merge import (
         cluster_merge_backward, cluster_merge_backward_reference,
@@ -384,6 +479,9 @@ def phase_kernels_bwd(torch):
     def f32(t):
         return t.float() if t.is_floating_point() else t
 
+    def f64(t):
+        return t.double() if t.is_floating_point() else t
+
     for label, n, h, c, per_step in ATTN_STAGES:
         errs = []
         for b, dtype in ((8, torch.float32), (8, torch.bfloat16),
@@ -398,7 +496,9 @@ def phase_kernels_bwd(torch):
             tag = f"attention_bwd_{label}" + ("_b128" if b == 128 else "")
             for o, x, y in zip(outs, got, want):
                 errs.append(check(f"{tag}_{o}", str(dtype).split(".")[1], x, y))
-        ms = time_ms(lambda: cluster_attention_backward(*args, g, h, CS, R))
+        meta = tile_metadata(a["ncc"])  # once per stage, as in the model
+        ms = time_ms(lambda: cluster_attention_backward(*args, g, h, CS, R,
+                                                        meta=meta))
         plain = time_ms(lambda: cluster_attention_backward_reference(
             *args, g, h, CS, R), iters=5, warmup=1)
         moved, flops = attn_bwd_work(torch, a, g, h, CS)
@@ -408,7 +508,23 @@ def phase_kernels_bwd(torch):
             plain_ms=plain, bound_ms=bms, bound_by=by, bytes=moved,
             flops=flops, max_abs_err=max(errs)))
         emit({"phase": "kernel_time", "kernel": "cluster_attention_bwd",
-              **rows["attention"][-1]})
+              **rows["attention"][-1],
+              **prev("cluster_attention_bwd", rows["attention"][-1])})
+    for shape in STRESS:
+        for dtype in (torch.float32, torch.bfloat16):
+            a, (h, cs, R, clamp) = stress_inputs(torch, gen, shape, 2, dev,
+                                                 dtype)
+            g = torch.randn(a["q"].shape, generator=gen).to(dev, dtype)
+            args = [a[k] for k in names]
+            got = cluster_attention_backward(*args, g, h, cs, R, clamp)
+            # in f64: at c_ = 556 the f32 plain version's own rounding in
+            # d_pe_bias (a sum of slot terms that cancel) nears the limit
+            want = cluster_attention_backward_reference(
+                *(f64(t) for t in args), g.double(), h, cs, R, clamp)
+            torch.cuda.synchronize()
+            for o, x, y in zip(outs, got, want):
+                check(f"attention_bwd_stress_{shape[0]}_{o}",
+                      str(dtype).split(".")[1], x, y)
     for label, n, n_, c in MERGES:
         errs = []
         for b, dtype in ((8, torch.float32), (8, torch.bfloat16),
@@ -451,7 +567,7 @@ def phase_model(torch):
 
     from ml_autofocusformermod_torch.models.build import build_model
     from ml_autofocusformermod_torch.ops.cluster_attention import (
-        fused_cluster_attention,
+        fused_cluster_attention, tile_metadata,
     )
     from ml_autofocusformermod_torch.ops.cluster_merge import (
         fused_cluster_merge,
@@ -467,22 +583,26 @@ def phase_model(torch):
         with torch.no_grad():
             fused_cluster_attention.launches = 0
             fused_cluster_merge.launches = 0
+            tile_metadata.calls = 0
             out = gpu(x.cuda()).float().cpu()
             torch.cuda.synchronize()
             launches = (fused_cluster_attention.launches,
                         fused_cluster_merge.launches)
+            meta_calls = tile_metadata.calls
             ref = build_model(cfg, "cpu", seed=0)(x).float()
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     err = (out - ref).abs().max().item()
     same_argmax = bool((out.argmax(-1) == ref.argmax(-1)).all())
+    # stages 2 and 3 make their metadata; stage 1's is the cached grid's
     ok = (err <= 1e-3 and same_argmax and launches == (10, 3)
+          and meta_calls <= 3
           and bool(out.isfinite().all()) and out.shape == (2, 1000))
     emit({"phase": "model_check", "model": "aff_mini_224", "dtype": "float32",
           "b": 2, "max_abs_err_vs_cpu": err, "same_argmax": same_argmax,
           "launches_per_forward": {"cluster_attention_fwd": launches[0],
                                    "cluster_merge_fwd": launches[1]},
-          "ok": ok})
+          "tile_metadata_calls": meta_calls, "ok": ok})
     if not ok:
         raise AssertionError("AFF-Mini GPU forward disagrees with the CPU "
                              "plain path or launched the wrong kernel count")

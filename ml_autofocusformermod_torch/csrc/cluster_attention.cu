@@ -15,247 +15,113 @@
 // Padded slots are excluded from the softmax (not weighted by exp(-100)).
 // q is pre-scaled; kv holds per head k then v: channel (hi, 0|1, c_).
 //
-// What bounds it on the H100: memory and latency. Each query reads its
-// 48 neighbour rows of k and v (a gather) and does ~4*m*c_ flops per head;
-// the unique bytes (q, kv, out once each) are the floor. The TPU kernels'
-// dense masked-plane formulation (clusten_pallas.py:8-17) existed to feed
-// the MXU; here one warp gathers exactly the rows it needs:
-//   * one warp per (image, query, head); the head index runs fastest, so a
-//     block's warps share query rows and neighbouring queries share clusters
-//     (L1/L2 reuse of the gathered rows);
-//   * lanes over the m slots for the logits (16-byte vector loads of each k
-//     row), geometry in f32 from the two positions;
-//   * warp reductions of the max and the sum, joined with the blank logit;
-//   * lanes over c_ for the AV sum (coalesced v-row reads).
-// Loads are f32 or bf16, all math is f32, the output is q's dtype.
+// What bounds it on the H100: the bytes are q, kv and out once each
+// (0.03 ms for AFF-Mini stage 1 at b128 bf16, 3.35 TB/s), and the work is
+// ~4 m c_ flops per (query, head), far under the tensor cores' rate. A
+// kernel that gathers each query's 48 rows pays instead a chain of
+// dependent gathers per (query, head), with every row fetched again by
+// each of the ~48 queries that share a cluster (a one-warp-per-(query,
+// head) kernel took 2.3-2.6 ns per (image, query, head) task at every
+// stage, whatever c_).
+//
+// The tiling (cluster_attention_tile.cuh): one block per (image, tile of
+// 64 cluster-ordered queries, group of G heads, slice of at most 64 output
+// channels). The tile's neighbour clusters are staged once into shared
+// memory with cp.async, so each k/v row is read from L2/HBM once per tile;
+// q.k^T and P.V run over the whole tile x union chunk on tensor cores
+// (bf16, mma.sync, f32 accumulators) or CUDA cores (f32); the q.k^T
+// epilogue keeps only each row's slots, and one row pass per chunk
+// computes the geometry once per (query, slot) for all G heads and the
+// online softmax, so any union size runs. A head wider than 64 channels
+// takes q.k^T over channel chunks and one block per output slice, so any
+// c_ runs too. Loads are f32 or bf16, the softmax and geometry f32, the
+// output q's dtype.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <type_traits>
+#include "cluster_attention_tile.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // warps per block
+using namespace ca;
 
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// elements of T in one 16-byte load
-template <typename T>
-struct Vec {
-  static constexpr int N = 16 / sizeof(T);
-};
-
-template <typename T>
-__device__ __forceinline__ void load16(const T* p, float* f) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  if constexpr (std::is_same<T, float>::value) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  } else {
-    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 v = __bfloat1622float2(b2[k]);
-      f[2 * k] = v.x;
-      f[2 * k + 1] = v.y;
-    }
+template <typename E, bool VEC, bool WIDE>
+__global__ void __launch_bounds__(kThreads, 1)
+cluster_attention_fwd_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Block<E, VEC, false, WIDE> blk(p, smem);
+  blk.begin();
+  blk.attend();
+  const int c = blk.c, c_ = blk.c_, cw = blk.cws, w = blk.G * cw;
+  E* out = static_cast<E*>(p.out) +
+           (static_cast<long long>(blk.bi) * p.n + blk.q0) * c +
+           blk.hg * blk.G * c_ + blk.chs;
+  for (int e = threadIdx.x; e < blk.rows * w; e += kThreads) {
+    const int i = e / w;
+    const int r = e - i * w;
+    const int g = r / cw, ch = r - g * cw;
+    const float o = blk.orow(g, i)[ch];
+    out[static_cast<long long>(i) * c + g * c_ + ch] =
+        from_f<E>(o / blk.l_[blk.st_at(g, i)]);
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// VEC: c_ * sizeof(T) is a multiple of 16 bytes, so every k row starts
-// 16-byte aligned and is read with vector loads.
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(kWarps * 32)
-cluster_attention_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ kv,
-    const int* __restrict__ ncc, const float* __restrict__ pos,
-    const float* __restrict__ pe_kernel, const float* __restrict__ pe_bias,
-    const float* __restrict__ blank_k, const float* __restrict__ blank_v,
-    T* __restrict__ out, int b, int n, int h, int c_, int nnc, int cs,
-    int rel_width, int clamp_hi, long long ncc_bstride,
-    long long pos_bstride) {
-  extern __shared__ float smem[];
-  const int m = nnc * cs;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* s_q = smem + warp * (c_ + 2 * m);  // the query row, f32
-  float* s_p = s_q + c_;                    // logits, then probabilities
-  int* s_t = reinterpret_cast<int*>(s_p + m);  // token row per slot, -1 = pad
-
-  const long long task = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (task >= static_cast<long long>(b) * n * h) return;  // whole warp
-  const int hi = static_cast<int>(task % h);
-  const long long bt = task / h;
-  const int i = static_cast<int>(bt % n);
-  const int bi = static_cast<int>(bt / n);
-  const int c = h * c_;
-
-  const T* qrow = q + (static_cast<long long>(bi) * n + i) * c + hi * c_;
-  for (int ch = lane; ch < c_; ch += 32) s_q[ch] = to_f(qrow[ch]);
-  __syncwarp();
-
-  const float* posb = pos + bi * pos_bstride;
-  const float pqx = posb[2 * i];
-  const float pqy = posb[2 * i + 1];
-  const int* nrow = ncc + bi * ncc_bstride + static_cast<long long>(i) * nnc;
-  const float w0 = pe_kernel[0 * h + hi];
-  const float w1 = pe_kernel[1 * h + hi];
-  const float w2 = pe_kernel[2 * h + hi];
-  const float w3 = pe_kernel[3 * h + hi];
-  const float w4 = pe_kernel[4 * h + hi];
-  const float pb_bias = pe_bias[hi];
-  const float R = static_cast<float>(rel_width);
-  const T* kvb = kv + static_cast<long long>(bi) * n * 2 * c;
-
-  // --- logits: lanes over slots ---
-  float mx = -INFINITY;
-  for (int s = lane; s < m; s += 32) {
-    int t = nrow[s / cs] * cs + (s % cs);
-    float logit = -INFINITY;
-    if (t >= 0 && t < n) {
-      const T* krow = kvb + static_cast<long long>(t) * 2 * c + 2 * hi * c_;
-      float acc = 0.f;
-      if constexpr (VEC) {
-        constexpr int N = Vec<T>::N;
-        for (int ch = 0; ch < c_; ch += N) {
-          float kf[N];
-          load16(krow + ch, kf);
-#pragma unroll
-          for (int e = 0; e < N; ++e) acc += s_q[ch + e] * kf[e];
-        }
-      } else {
-        for (int ch = 0; ch < c_; ++ch) acc += s_q[ch] * to_f(krow[ch]);
-      }
-      float dx = posb[2 * t] - pqx;
-      float dy = posb[2 * t + 1] - pqy;
-      if (clamp_hi >= 0) {  // MixRes clamp of table-frame coordinates
-        dx = fminf(fmaxf(dx + R, 0.f), static_cast<float>(clamp_hi)) - R;
-        dy = fminf(fmaxf(dy + R, 0.f), static_cast<float>(clamp_hi)) - R;
-      }
-      const float dist = sqrtf(dx * dx + dy * dy);
-      float sn = 0.f, cn = 0.f;
-      if (dist != 0.f) {
-        sn = dy / dist;
-        cn = dx / dist;
-      }
-      logit = acc + w0 * dx + w1 * dy + w2 * dist + w3 * sn + w4 * cn + pb_bias;
-    } else {
-      t = -1;
-    }
-    s_p[s] = logit;
-    s_t[s] = t;
-    mx = fmaxf(mx, logit);
-  }
-
-  // --- joint softmax with the blank logit ---
-  float bl = 0.f;
-  for (int ch = lane; ch < c_; ch += 32) bl += s_q[ch] * blank_k[ch * h + hi];
-  bl = warp_sum(bl);
-  mx = fmaxf(warp_max(mx), bl);
-  float sum = 0.f;
-  for (int s = lane; s < m; s += 32) {
-    const float p = s_t[s] >= 0 ? expf(s_p[s] - mx) : 0.f;
-    s_p[s] = p;
-    sum += p;
-  }
-  sum = warp_sum(sum);
-  const float pb = expf(bl - mx);
-  const float inv = 1.f / (sum + pb);
-  __syncwarp();
-
-  // --- AV: lanes over channels ---
-  T* orow = out + (static_cast<long long>(bi) * n + i) * c + hi * c_;
-  const T* vb = kvb + (2 * hi + 1) * c_;
-  for (int ch = lane; ch < c_; ch += 32) {
-    float acc = pb * blank_v[hi * c_ + ch];
-    for (int s = 0; s < m; ++s) {
-      const int t = s_t[s];
-      if (t >= 0) acc += s_p[s] * to_f(vb[static_cast<long long>(t) * 2 * c + ch]);
-    }
-    orow[ch] = from_f<T>(acc * inv);
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* q, const void* kv, const void* ncc,
-                   const void* pos, const void* pe_kernel, const void* pe_bias,
-                   const void* blank_k, const void* blank_v, void* out, int b,
-                   int n, int h, int c_, int nnc, int cs, int rel_width,
-                   int clamp_width, long long ncc_bstride,
-                   long long pos_bstride, cudaStream_t stream) {
-  const long long tasks = static_cast<long long>(b) * n * h;
-  if (tasks == 0) return cudaSuccess;
-  const unsigned blocks = static_cast<unsigned>((tasks + kWarps - 1) / kWarps);
-  const size_t shmem = sizeof(float) * kWarps * (c_ + 2 * nnc * cs);
-  const int clamp_hi = clamp_width > 0 ? clamp_width - 1 : -1;
-  const bool vec = (c_ * sizeof(T)) % 16 == 0;
-#define CA_ARGS                                                             \
-  static_cast<const T*>(q), static_cast<const T*>(kv),                      \
-      static_cast<const int*>(ncc), static_cast<const float*>(pos),         \
-      static_cast<const float*>(pe_kernel),                                 \
-      static_cast<const float*>(pe_bias), static_cast<const float*>(blank_k), \
-      static_cast<const float*>(blank_v), static_cast<T*>(out), b, n, h, c_, \
-      nnc, cs, rel_width, clamp_hi, ncc_bstride, pos_bstride
-  if (vec) {
-    cluster_attention_fwd_kernel<T, true>
-        <<<blocks, kWarps * 32, shmem, stream>>>(CA_ARGS);
-  } else {
-    cluster_attention_fwd_kernel<T, false>
-        <<<blocks, kWarps * 32, shmem, stream>>>(CA_ARGS);
-  }
-#undef CA_ARGS
+template <typename E>
+int launch(Params& p, int esize, bool vec, cudaStream_t stream) {
+  int bytes;
+  if (!apply_plan(p, esize, false, &bytes))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const bool wide = wide_plan(p);
+  auto kernel = vec ? (wide ? cluster_attention_fwd_kernel<E, true, true>
+                            : cluster_attention_fwd_kernel<E, true, false>)
+                    : (wide ? cluster_attention_fwd_kernel<E, false, true>
+                            : cluster_attention_fwd_kernel<E, false, false>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid_of(p), kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, kv and out). Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 (q, kv and out). ucl, ucount, nidx:
+// the tile metadata (ops/cluster_attention.py::tile_metadata), batch-
+// broadcast when meta_batched is 0. Returns a cudaError_t.
 extern "C" int cluster_attention_fwd(
-    const void* q, const void* kv, const void* ncc, const void* pos,
-    const void* pe_kernel, const void* pe_bias, const void* blank_k,
-    const void* blank_v, void* out, int b, int n, int h, int c_, int nnc,
-    int cs, int rel_width, int clamp_width, long long ncc_bstride,
-    long long pos_bstride, int dtype, void* stream) {
+    const void* q, const void* kv, const void* pos, const void* ucl,
+    const void* ucount, const void* nidx, const void* pe_kernel,
+    const void* pe_bias, const void* blank_k, const void* blank_v, void* out,
+    int b, int n, int h, int c_, int nnc, int cs, int rel_width,
+    int clamp_width, long long pos_bstride, int meta_batched, int dtype,
+    void* stream) {
+  if (static_cast<long long>(b) * n == 0) return cudaSuccess;
+  Params p = {};
+  p.q = q;
+  p.kv = kv;
+  p.pos = static_cast<const float*>(pos);
+  p.ucl = static_cast<const int*>(ucl);
+  p.ucount = static_cast<const int*>(ucount);
+  p.nidx = static_cast<const int*>(nidx);
+  p.pe_kernel = static_cast<const float*>(pe_kernel);
+  p.pe_bias = static_cast<const float*>(pe_bias);
+  p.blank_k = static_cast<const float*>(blank_k);
+  p.blank_v = static_cast<const float*>(blank_v);
+  p.out = out;
+  p.b = b;
+  p.n = n;
+  p.h = h;
+  p.c_ = c_;
+  p.nnc = nnc;
+  p.cs = cs;
+  p.ntiles = (n + kTile - 1) / kTile;
+  p.clamp_hi = clamp_width > 0 ? clamp_width - 1 : -1;
+  p.R = static_cast<float>(rel_width);
+  p.pos_bstride = pos_bstride;
+  p.meta_batched = meta_batched;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool aligned = aligned16(q) && aligned16(kv);
   if (dtype == 0)
-    return launch<float>(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v,
-                         out, b, n, h, c_, nnc, cs, rel_width, clamp_width,
-                         ncc_bstride, pos_bstride, st);
+    return launch<float>(p, 4, aligned && c_ % 4 == 0, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
-                                 blank_v, out, b, n, h, c_, nnc, cs, rel_width,
-                                 clamp_width, ncc_bstride, pos_bstride, st);
+    return launch<bf16>(p, 2, aligned && c_ % 8 == 0, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops.cluster_attention import constant_tile_metadata, tile_metadata
 from ..ops.cluster_gather import cluster_token_index
 from ..ops.knn import knn
 from ..ops.sfc import grid_tensors, space_filling_cluster
@@ -71,7 +72,7 @@ class BasicLayer(nn.Module):
         R = self.rel_pos_width
         m = self.cluster_size
         global_attn = self.nbhd_size >= n
-        ncc = cluster_mask = pe_feat = None
+        ncc = cluster_mask = pe_feat = tile_meta = None
         if global_attn:
             rel_pos = (pos[:, None, :, :] + R) - pos[:, :, None, :]  # b n n 2
             pe_feat = rel_pos_features(rel_pos, R)
@@ -83,16 +84,19 @@ class BasicLayer(nn.Module):
                 feat = feat[:, g_reorder]
                 pos = g_pos[None].expand(b, n, d)
                 ncc = g_ncc[None].expand(b, n, nnc)
+                tile_meta = constant_tile_metadata(g_ncc)
             else:
                 pos, mean_pos, _, _, reorder = space_filling_cluster(pos, m, h, w)
                 feat = torch.gather(
                     feat, 1, reorder.expand(b, n, feat.shape[2]))
                 ncc = knn(pos, mean_pos, nnc)  # b n nnc int32
+                # the kernels' tile unions, once for every block of the stage
+                tile_meta = tile_metadata(ncc)
             if k * m != n:
                 cluster_mask = (cluster_token_index(ncc, m) < n).to(torch.int32)
 
         for blk in self.blocks:
-            feat = blk(feat, global_attn, pe_feat, ncc, m, pos)
+            feat = blk(feat, global_attn, pe_feat, ncc, m, pos, tile_meta)
 
         if self.downsample is not None:
             learned_prob = torch.sigmoid(self.prob_net(feat))

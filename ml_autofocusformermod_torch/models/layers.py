@@ -145,7 +145,8 @@ class ClusterAttention(nn.Module):
         self.proj = Linear(dim, dim, compute_dtype)
 
     def forward(self, feat, global_attn: bool, pe_feat=None,
-                nearest_cluster=None, cluster_size: int = 0, pos=None):
+                nearest_cluster=None, cluster_size: int = 0, pos=None,
+                tile_meta=None):
         b, n, c = feat.shape
         h = self.num_heads
         c_ = c // h
@@ -158,6 +159,7 @@ class ClusterAttention(nn.Module):
                 self.blank_k.reshape(h, c_).t(), self.blank_v.reshape(h, c_),
                 h, cluster_size, self.rel_pos_width,
                 drop_rate=self.attn_drop.p if self.training else 0.0,
+                meta=tile_meta,
             )
         else:
             dt = self.compute_dtype
@@ -199,9 +201,9 @@ class ClusterTransformerBlock(nn.Module):
             self.gamma2 = nn.Parameter(torch.full((dim,), float(layer_scale)))
 
     def forward(self, feat, global_attn, pe_feat, nearest_cluster,
-                cluster_size, pos):
+                cluster_size, pos, tile_meta=None):
         x = self.attn(self.norm1(feat), global_attn, pe_feat,
-                      nearest_cluster, cluster_size, pos)
+                      nearest_cluster, cluster_size, pos, tile_meta)
         if self.use_layer_scale:
             feat = feat + self.drop_path(self.gamma1.to(x.dtype) * x)
             y = self.mlp(self.norm2(feat))

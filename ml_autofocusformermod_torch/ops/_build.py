@@ -6,8 +6,9 @@ that returns ``cudaGetLastError()``) and is compiled by ``nvcc`` for
 built when the package is imported: the first CUDA call of any kernel
 builds all sources at once, one ``nvcc`` process per source, all started
 together. Libraries land in ``csrc/build/`` (listed in ``.gitignore``)
-under a name that carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused. A failed build raises.
+under a name that carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused. A failed build raises.
 """
 
 from __future__ import annotations
@@ -46,7 +47,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers count as part of every source
+    src = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    src += (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}.{digest[:16]}.so"
 

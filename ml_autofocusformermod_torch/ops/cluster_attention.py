@@ -8,24 +8,95 @@ PyTorch version, on a CPU tensor; its backward
 (:func:`cluster_attention_backward`) launches ``csrc/cluster_attention_bwd.cu``
 on a CUDA tensor and runs :func:`cluster_attention_backward_reference` on a
 CPU tensor. There is no fallback between the two.
+
+The kernels work on tiles of :data:`TILE` consecutive query rows: a block
+stages the union of its tile's neighbour clusters in shared memory.
+:func:`tile_metadata` computes that union per tile once per stage (the
+model calls it where ``ncc`` is made and hands it to every block of the
+stage, forward and backward; :func:`constant_tile_metadata` keeps that of
+a constant ``ncc``, such as the on-grid stage's); without it the wrappers
+compute it themselves.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import _build
 from .cluster_gather import cluster_token_index, gather_clusters
 
 __all__ = ["fused_cluster_attention", "cluster_attention_reference",
            "cluster_attention_backward",
-           "cluster_attention_backward_reference", "offset_features"]
+           "cluster_attention_backward_reference", "offset_features",
+           "TILE", "TileMeta", "tile_metadata", "constant_tile_metadata"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_SHMEM_LIMIT = 48 * 1024  # static-launch shared memory per block
-_WARPS = 8  # warps per block, csrc/cluster_attention{,_bwd}.cu::kWarps
+TILE = 64  # query rows per kernel tile, csrc/cluster_attention_tile.cuh::kTile
+
+
+class TileMeta(NamedTuple):
+    """The neighbour-cluster union of each tile of :data:`TILE` query rows.
+
+    ``B`` is the batch of ``ncc``, or 1 when ``ncc`` is batch-broadcast;
+    ``nt = ceil(n / TILE)``.
+
+    * ``ucl`` (B, nt, TILE * nnc) int32: the union's cluster ids, sorted
+      ascending, in the first ``ucount`` entries;
+    * ``ucount`` (B, nt) int32: the union's size;
+    * ``nidx`` (B, nt * TILE, nnc) int32: for each query row, the union
+      indices of its nnc clusters, sorted ascending (rows past n repeat
+      the last row), so that a union chunk covers a contiguous run of
+      each row's slots.
+    """
+
+    ucl: torch.Tensor
+    ucount: torch.Tensor
+    nidx: torch.Tensor
+
+
+def tile_metadata(ncc):
+    """:class:`TileMeta` of the (b, n, nnc) nearest-cluster indices
+    ``ncc`` (plain torch, on ``ncc``'s device). A batch-broadcast ``ncc``
+    (stride 0) gives one image's metadata. Counted in
+    ``tile_metadata.calls``."""
+    tile_metadata.calls += 1
+    if ncc.shape[0] > 1 and ncc.stride(0) == 0:
+        ncc = ncc[:1]
+    B, n, nnc = ncc.shape
+    nt = -(-n // TILE)
+    rows = ncc.long()
+    if nt * TILE != n:
+        rows = torch.cat([rows, rows[:, -1:].expand(B, nt * TILE - n, nnc)],
+                         dim=1)
+    ids = rows.reshape(B, nt, TILE * nnc)
+    srt, perm = torch.sort(ids, dim=-1)
+    new = torch.ones_like(srt, dtype=torch.bool)
+    new[..., 1:] = srt[..., 1:] != srt[..., :-1]
+    rank = torch.cumsum(new, dim=-1) - 1  # union index of each sorted id
+    nidx = torch.empty_like(rank).scatter_(-1, perm, rank)
+    nidx = torch.sort(nidx.reshape(B, nt * TILE, nnc), dim=-1)[0]
+    ucl = torch.zeros_like(srt).scatter_(-1, rank, srt)
+    ucount = rank[..., -1] + 1 if nnc else rank.new_zeros((B, nt))
+    i32 = torch.int32
+    return TileMeta(ucl.to(i32), ucount.to(i32), nidx.to(i32))
+
+
+tile_metadata.calls = 0
+
+_CONST_META = WeakIdKeyDictionary()
+
+
+def constant_tile_metadata(ncc):
+    """:func:`tile_metadata` of a constant (n, nnc) ``ncc`` that is
+    broadcast over the batch (the on-grid stage's), computed once per
+    tensor and kept while the tensor lives."""
+    if ncc not in _CONST_META:
+        _CONST_META[ncc] = tile_metadata(ncc[None])
+    return _CONST_META[ncc]
 
 
 def offset_features(dx, dy):
@@ -201,23 +272,34 @@ def _small_params(q, num_heads, pe_kernel, pe_bias, blank_k, blank_v):
     return out
 
 
-def _check_shmem(q, num_heads, nnc, cs, backward):
-    """Raise when a block of the forward or backward kernel would need more
-    shared memory than a static launch gets."""
-    c = q.shape[2]
-    c_ = c // num_heads
-    m = nnc * cs
-    if backward:
-        shmem = 4 * (6 * num_heads + 2 * c + _WARPS * (2 * c_ + 3 * m))
-    else:
-        shmem = 4 * _WARPS * (c_ + 2 * m)
-    if shmem > _SHMEM_LIMIT:
-        raise ValueError(f"c_={c_}, m={m} need {shmem} B of shared memory "
-                         f"per block (limit {_SHMEM_LIMIT})")
+def _meta_args(meta, ncc):
+    """The metadata of ``ncc`` (computed when ``meta`` is None), checked,
+    and 1 when it has the batch of ``ncc``, 0 when it is broadcast."""
+    if meta is None:
+        meta = tile_metadata(ncc)
+    b, n, nnc = ncc.shape
+    B = meta.nidx.shape[0]
+    nt = -(-n // TILE)
+    shapes = [tuple(t.shape) for t in meta]
+    if (B not in (1, b) or shapes != [(B, nt, TILE * nnc), (B, nt),
+                                      (B, nt * TILE, nnc)]
+            or any(t.dtype != torch.int32 or t.device != ncc.device
+                   or not t.is_contiguous() or t.data_ptr() % 16
+                   for t in meta)):
+        raise ValueError(f"tile metadata {shapes} does not fit ncc "
+                         f"{tuple(ncc.shape)}: use tile_metadata(ncc)")
+    return meta, int(B == b and b > 1)
+
+
+def _launch(fn, name, *args):
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def _attention_forward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
-                       blank_v, num_heads, cs, rel_width, clamp_width):
+                       blank_v, num_heads, cs, rel_width, clamp_width,
+                       meta=None):
     """The forward: the CUDA kernel on a CUDA tensor (counted in
     ``fused_cluster_attention.launches``), the plain version on the CPU."""
     if q.device.type == "cpu":
@@ -229,38 +311,35 @@ def _attention_forward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
     _check_cuda_args(q, kv, ncc, pos, num_heads)
     b, n, c = q.shape
     h = num_heads
-    nnc = ncc.shape[2]
-    _check_shmem(q, h, nnc, cs, backward=False)
-    pe_kernel, pe_bias, blank_k, blank_v = _small_params(
-        q, h, pe_kernel, pe_bias, blank_k, blank_v)
+    meta, batched = _meta_args(meta, ncc)
+    params = _small_params(q, h, pe_kernel, pe_bias, blank_k, blank_v)
     out = torch.empty_like(q)
-    lib = _build.library("cluster_attention")
-    fn = lib.cluster_attention_fwd
+    fn = _build.library("cluster_attention").cluster_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), kv.data_ptr(), ncc.data_ptr(), pos.data_ptr(),
-                pe_kernel.data_ptr(), pe_bias.data_ptr(), blank_k.data_ptr(),
-                blank_v.data_ptr(), out.data_ptr(), b, n, h, c // h, nnc, cs,
-                int(rel_width), int(clamp_width), ncc.stride(0),
-                pos.stride(0), _DTYPE_CODE[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"cluster_attention_fwd launch failed: CUDA error {rc}")
+        _launch(fn, "cluster_attention_fwd", q.data_ptr(), kv.data_ptr(),
+                pos.data_ptr(), *(t.data_ptr() for t in meta),
+                *(t.data_ptr() for t in params), out.data_ptr(), b, n, h,
+                c // h, ncc.shape[2], cs, int(rel_width), int(clamp_width),
+                pos.stride(0), batched, _DTYPE_CODE[q.dtype], stream)
     fused_cluster_attention.launches += 1
     return out
 
 
 def cluster_attention_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
                                blank_v, g_out, num_heads, cs, rel_width,
-                               clamp_width=0):
+                               clamp_width=0, meta=None):
     """Gradients of the fused attention with respect to ``q, kv, pe_kernel,
     pe_bias, blank_k, blank_v``, each in its input's dtype.
 
     On a CUDA tensor this launches ``csrc/cluster_attention_bwd.cu`` (and
-    adds one to ``cluster_attention_backward.launches``); on a CPU tensor it
-    runs :func:`cluster_attention_backward_reference`.
+    adds one to ``cluster_attention_backward.launches``), with ``meta``
+    the :class:`TileMeta` of ``ncc`` (computed when None); on a CPU tensor
+    it runs :func:`cluster_attention_backward_reference`.
     """
     if q.device.type == "cpu":
         return cluster_attention_backward_reference(
@@ -277,26 +356,24 @@ def cluster_attention_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
     b, n, c = q.shape
     h = num_heads
     c_ = c // h
-    nnc = ncc.shape[2]
-    _check_shmem(q, h, nnc, cs, backward=True)
+    meta, batched = _meta_args(meta, ncc)
     params = _small_params(q, h, pe_kernel, pe_bias, blank_k, blank_v)
     dq = torch.empty_like(q)
     dkv = torch.zeros((b, n, 2 * c), dtype=torch.float32, device=q.device)
     dparams = torch.zeros(6 * h + 2 * c, dtype=torch.float32, device=q.device)
-    lib = _build.library("cluster_attention_bwd")
-    fn = lib.cluster_attention_bwd
+    fn = _build.library("cluster_attention_bwd").cluster_attention_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), kv.data_ptr(), ncc.data_ptr(), pos.data_ptr(),
+        _launch(fn, "cluster_attention_bwd", q.data_ptr(), kv.data_ptr(),
+                pos.data_ptr(), *(t.data_ptr() for t in meta),
                 *(t.data_ptr() for t in params), g_out.data_ptr(),
                 dq.data_ptr(), dkv.data_ptr(), dparams.data_ptr(), b, n, h,
-                c_, nnc, cs, int(rel_width), int(clamp_width), ncc.stride(0),
-                pos.stride(0), _DTYPE_CODE[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"cluster_attention_bwd launch failed: CUDA error {rc}")
+                c_, ncc.shape[2], cs, int(rel_width), int(clamp_width),
+                pos.stride(0), batched, _DTYPE_CODE[q.dtype], stream)
     cluster_attention_backward.launches += 1
     d_pe_kernel, d_pe_bias, d_blank_k, d_blank_v = torch.split(
         dparams, [5 * h, h, c_ * h, h * c_])
@@ -312,17 +389,21 @@ cluster_attention_backward.launches = 0
 
 class _FusedClusterAttention(torch.autograd.Function):
     """Forward and backward through the kernels (CUDA) or the plain
-    versions (CPU); the backward recomputes the softmax."""
+    versions (CPU); the backward recomputes the softmax. On the card the
+    forward and the backward share one :class:`TileMeta`."""
 
     @staticmethod
     def forward(ctx, q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v,
-                num_heads, cs, rel_width, clamp_width):
-        ctx.meta = (num_heads, cs, rel_width, clamp_width)
+                num_heads, cs, rel_width, clamp_width, meta):
+        if q.device.type == "cuda":
+            meta = _meta_args(meta, ncc)[0]
+        ctx.args = (num_heads, cs, rel_width, clamp_width)
+        ctx.tiles = meta
         ctx.save_for_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
                               blank_v)
         return _attention_forward(q, kv, ncc, pos, pe_kernel, pe_bias,
                                   blank_k, blank_v, num_heads, cs, rel_width,
-                                  clamp_width)
+                                  clamp_width, meta)
 
     @staticmethod
     def backward(ctx, g_out):
@@ -330,14 +411,14 @@ class _FusedClusterAttention(torch.autograd.Function):
         q = saved[0]
         g_out = g_out.to(q.dtype).contiguous()
         dq, dkv, dpk, dpb, dbk, dbv = cluster_attention_backward(
-            *saved, g_out, *ctx.meta)
+            *saved, g_out, *ctx.args, meta=ctx.tiles)
         return (dq, dkv, None, None, dpk, dpb, dbk, dbv,
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def fused_cluster_attention(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
                             blank_v, num_heads, cs, rel_width, clamp_width=0,
-                            drop_rate=0.0):
+                            drop_rate=0.0, meta=None):
     """Fused local cluster attention, differentiable in ``q, kv, pe_kernel,
     pe_bias, blank_k, blank_v``.
 
@@ -353,6 +434,11 @@ def fused_cluster_attention(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
         num_heads: h. cs: cluster size. rel_width: R.
         clamp_width: table width for the MixRes clamp (0 = no clamp).
         drop_rate: post-softmax attention dropout; only 0 is ported.
+        meta: :func:`tile_metadata` of this same ``ncc``, which the CUDA
+            kernels read instead of ``ncc``; computed here when None. Only
+            its shapes are checked: metadata of another ``ncc`` gives
+            attention over the wrong neighbourhoods. The CPU path does not
+            use it.
 
     Returns:
         out (b, n, c) in q's dtype, the blank-token contribution included.
@@ -367,7 +453,7 @@ def fused_cluster_attention(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
     return _FusedClusterAttention.apply(
         q, kv, ncc, pos, pe_kernel.to(acc), pe_bias.to(acc),
         blank_k.to(acc), blank_v.to(acc), num_heads, cs, rel_width,
-        clamp_width)
+        clamp_width, meta)
 
 
 fused_cluster_attention.launches = 0

@@ -53,6 +53,7 @@ from ml_autofocusformermod_tpu.train.losses import (
     smooth_one_hot as jax_smooth_one_hot,
     soft_target_cross_entropy as jax_soft_target_ce,
 )
+from test_torch_kernels import STRESS, _stress_case
 
 torch.set_num_threads(1)
 ATOL, RTOL = 1e-5, 1e-4  # fp32 envelope of tests/test_pallas_kernel.py:453
@@ -417,6 +418,34 @@ def test_attention_backward_kernel_matches_plain_on_card(cuda_device, dtype):
     for name, x, y in zip(ATTN_GRADS, got, want):
         err = (x.float() - y.float()).abs().max().item()
         assert err <= tol * y.float().abs().max().item(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", STRESS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_kernel_stress_shapes_on_card(cuda_device, dtype,
+                                                         name):
+    """The stress shapes of ``tests/test_torch_kernels.py`` (n = 1921 with
+    clamp_width 9, cs = 1 with nnc = 48, random ncc over several chunks,
+    AFF-Base-384's m = 144, c_ = 556 and 1440, m = 760 with repeated
+    clusters); every gradient."""
+    a, h, cs, R, clamp = _stress_case(name, 12)
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in a.items()}
+    for k in ("q", "kv", "g"):
+        t[k] = t[k].to(dtype)
+    got = cluster_attention_backward(*(t[k] for k in ATTN_ARGS), t["g"], h,
+                                     cs, R, clamp)
+    # the plain backward in f64: at c_ = 556 its f32 rounding of d_pe_bias
+    # (a sum of slot terms that cancel) nears the limit
+    plain = {k: (v.double() if v.is_floating_point() else v)
+             for k, v in t.items()}
+    want = cluster_attention_backward_reference(
+        *(plain[k] for k in ATTN_ARGS), plain["g"], h, cs, R, clamp)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for gname, x, y in zip(ATTN_GRADS, got, want):
+        err = (x.float() - y.float()).abs().max().item()
+        assert err <= tol * y.float().abs().max().item(), gname
 
 
 @pytest.mark.cuda

@@ -23,7 +23,7 @@ from ml_autofocusformermod_tpu.ops.sfc import (
     grid_cluster, grid_nearest_clusters,
 )
 from ml_autofocusformermod_torch.ops.cluster_attention import (
-    cluster_attention_reference, fused_cluster_attention,
+    cluster_attention_reference, fused_cluster_attention, tile_metadata,
 )
 from ml_autofocusformermod_torch.ops.cluster_merge import (
     cluster_merge_reference, fused_cluster_merge,
@@ -107,8 +107,9 @@ def _run_both(args, rel_width, clamp_width=0, **jax_kw):
         ref = jax_attention(*(jnp.asarray(args[k]) for k in names), H, CS,
                             rel_width, clamp_width, **jax_kw)
     before = fused_cluster_attention.launches
-    out = fused_cluster_attention(*(torch.from_numpy(args[k]) for k in names),
-                                  H, CS, rel_width, clamp_width)
+    t = [torch.from_numpy(args[k]) for k in names]
+    out = fused_cluster_attention(*t, H, CS, rel_width, clamp_width,
+                                  meta=tile_metadata(t[2]))
     assert fused_cluster_attention.launches == before  # CPU: plain version
     return out.numpy(), np.asarray(ref)
 
@@ -164,7 +165,7 @@ def _to(args, dev, dtype):
     out = {}
     for k, v in args.items():
         t = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-        out[k] = t.to(dtype) if k in ("q", "kv") else t
+        out[k] = t.to(dtype) if k in ("q", "kv", "g") else t
     return out
 
 
@@ -183,6 +184,70 @@ def test_attention_kernel_matches_plain_on_card(cuda_device, dtype):
     err = (out.float() - ref.float()).abs().max().item()
     assert out.dtype == dtype
     assert err <= tol * ref.float().abs().max().item()
+
+
+def _stress_case(name, seed):
+    """The attention stress shapes of ``chip_smoke.py`` (b = 1): n = 1921
+    with clamp_width 9 and h = 8, c_ = 32; cs = 1 with nnc = 48; random
+    ncc, whose 64-query tile unions hold most of the image's clusters and
+    so span several shared-memory chunks; AFF-Base-384's cs = 24 with
+    nnc = 6 (m = 144); heads wider than a staged tile (c_ = 556 and 1440,
+    the widest the one-warp kernels took); and m = 760 with cs = 40, whose
+    rows list clusters more than once. Returns (inputs, h, cs, R,
+    clamp_width)."""
+    rng = np.random.default_rng(seed)
+    n, h, c_, cs, nnc, R, clamp = {
+        "n1921_clamp9": (1921, 8, 32, 8, 6, 4, 9),
+        "cs1_nnc48": (196, 4, 32, 1, 48, 27, 0),
+        "random_ncc": (784, 4, 32, 8, 6, 27, 0),
+        "aff_base384": (2304, 8, 32, 24, 6, 95, 0),
+        "wide_c556": (196, 2, 556, 8, 6, 27, 0),
+        "wide_c1440": (196, 1, 1440, 8, 6, 27, 0),
+        "m760_repeats": (990, 2, 16, 40, 19, 27, 0),
+    }[name]
+    k = -(-n // cs)
+    if name.endswith("repeats"):  # drawn with replacement
+        ncc = rng.integers(0, k, size=(1, n, nnc))
+    else:
+        ncc = np.argsort(rng.uniform(size=(1, n, k)), axis=-1)[:, :, :nnc]
+    c = h * c_
+    a = dict(
+        q=rng.standard_normal((1, n, c)).astype(np.float32) * c_**-0.5,
+        kv=rng.standard_normal((1, n, 2 * c)).astype(np.float32),
+        ncc=ncc.astype(np.int32),
+        pos=rng.integers(0, 56, size=(1, n, 2)).astype(np.float32),
+        pe_kernel=(rng.standard_normal((5, h)) * 0.1).astype(np.float32),
+        pe_bias=(rng.standard_normal((h,)) * 0.1).astype(np.float32),
+        blank_k=(rng.standard_normal((c_, h)) * 0.5).astype(np.float32),
+        blank_v=(rng.standard_normal((h, c_)) * 0.5).astype(np.float32),
+        g=rng.standard_normal((1, n, c)).astype(np.float32),
+    )
+    return a, h, cs, R, clamp
+
+
+STRESS = ["n1921_clamp9", "cs1_nnc48", "random_ncc", "aff_base384",
+          "wide_c556", "wide_c1440", "m760_repeats"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", STRESS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_stress_shapes_on_card(cuda_device, dtype, name):
+    a, h, cs, R, clamp = _stress_case(name, 11)
+    args = _to(a, cuda_device, dtype)
+    names = ["q", "kv", "ncc", "pos", "pe_kernel", "pe_bias", "blank_k",
+             "blank_v"]
+    before = fused_cluster_attention.launches
+    out = fused_cluster_attention(*(args[k] for k in names), h, cs, R, clamp)
+    plain = dict(args, q=args["q"].float(), kv=args["kv"].float())
+    ref = cluster_attention_reference(*(plain[k] for k in names), h, cs, R,
+                                      clamp)
+    torch.cuda.synchronize()
+    assert fused_cluster_attention.launches == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    err = (out.float() - ref).abs().max().item()
+    assert out.dtype == dtype
+    assert err <= tol * ref.abs().max().item()
 
 
 @pytest.mark.cuda
