@@ -8,35 +8,48 @@ Phases, one JSON line each:
    nvcc versions;
 2. build: every CUDA kernel of ``ml_autofocusformermod_torch/csrc``, built
    from source with nvcc (one process per source, all at once);
-3. kernel_check: each forward kernel against its plain PyTorch version at
-   every AFF-Mini 224 shape of the forward (attention at stages 1-3, merges
-   1-3), b = 8, fp32 (max abs <= 1e-4 * max|ref|) and bf16 (plain version
-   in f32 on the same bf16 inputs, max abs <= 2e-2 * max|ref|); then, at
-   b = 128 bf16, the shapes of the throughput run, the same bf16 check and
-   the kernel's and the plain version's median time (CUDA events) beside
-   the least time the card could take and the time of the kernel it
-   replaced, the one-warp-per-(query, head) design (``prev_ms``, as
-   recorded in PERF.md, not measured here); the attention kernel is timed
-   as the model
-   calls it, with the stage's tile metadata made beforehand, and the
-   metadata's own time is ``tile_metadata_ms``; then the attention stress
-   shapes (``STRESS``:
+3. kernel_check: the attention forward kernel against its plain PyTorch
+   version at the AFF-Mini 224 stage shapes (stages 1-3), b = 8, fp32 (max
+   abs <= 1e-4 * max|ref|) and bf16 (plain version in f32 on the same bf16
+   inputs, max abs <= 2e-2 * max|ref|); then, at b = 128 bf16, the shapes
+   of the throughput run, the same bf16 check and the kernel's time
+   (``ms``: the median of 20 single calls made as the model makes them,
+   CUDA events around each, so the host's launch time counts where the
+   device waits for it; ``device_ms``: calls queued back to back behind a
+   sleeping kernel, median of 5 rounds of 20) and the plain version's,
+   beside the least time the card could take and the recorded time of
+   the kernel it replaced (``prev_ms``, as recorded in PERF.md, not
+   measured here); the
+   attention kernel is timed as the model calls it, with the stage's tile
+   metadata made beforehand, and the metadata's own time is
+   ``tile_metadata_ms``; then the attention stress shapes (``STRESS``:
    n = 1921 with clamp_width 9, cs = 1 with nnc = 48, random ncc whose
    tile unions span several shared-memory chunks, AFF-Base-384's cs = 24
    with nnc = 6, heads of c_ = 556 and 1440, m = 760 with repeated
    clusters), b = 2, fp32 and bf16;
-4. kernel_check, backward: the same for the two backward kernels against
-   their plain backwards, every output (attention: dq, dkv, d_pe_kernel,
-   d_pe_bias, d_blank_k, d_blank_v; merge: dw, dfeat) at the same six
-   shapes, b = 8 fp32 and bf16, then b = 128 bf16 with times, bound and
-   ``prev_ms``, then the attention stress shapes as in 3 (the plain
-   backward in f64);
+4. kernel_check, backward: the same for the attention backward kernel
+   against its plain backward, every output (dq, dkv, d_pe_kernel,
+   d_pe_bias, d_blank_k, d_blank_v), the stress shapes with the plain
+   backward in f64;
+   then both merge kernels, forward and backward (dw, dfeat), against
+   their plain versions with the same limits, and the backward's
+   inverse-index kernel against its plain version (the same lists): the
+   three AFF-Mini merges at b = 8 (fp32, bf16) and b = 128 (bf16, with
+   times, bound and ``prev_ms``; the backward timed as the model calls
+   it, its inverse index made inside, and the index's own time also
+   ``merge_index_ms``), the merge stress shapes (``MERGE_STRESS``, fp32
+   and bf16, the plain backward in f64; a ``merge_lists`` line each gives
+   its list lengths), the index alone where clusters outnumber one range
+   of the index kernel (``INDEX_STRESS``), and
+   ``merge_bwd_deterministic``: two backwards of merge 1 at b = 128 bf16
+   give the same bits;
 5. model_check: AFF-Mini 224 built through ``build_model`` and the port's
    ``aff_mini.yaml`` from a fixed seed, fp32, b = 2: the GPU forward (CUDA
    kernels, TF32 off) against the CPU forward (plain versions) on the same
    weights, logits within 1e-3 and the same argmax; 10 attention and 3
-   merge launches per forward, and the attention's tile metadata made once
-   per stage (``tile_metadata`` calls, the grid stage's cached);
+   merge launches per forward, the attention's tile metadata made once
+   per stage (``tile_metadata`` calls, the grid stage's cached) and no
+   merge inverse index;
 6. train_check: one ``make_train_step`` step of the same model, fp32,
    b = 2, on the GPU (kernels, TF32 off) against the same step on the CPU
    (plain versions) from the same weights: loss and grad_norm within 1e-4
@@ -45,7 +58,8 @@ Phases, one JSON line each:
    zero in exact arithmetic),
    the BatchNorm running stats within 1e-5 * max|ref| (the two devices
    reduce in another order); 10 + 10 attention and 3 + 3 merge launches
-   (forward + backward) per step;
+   (forward + backward) and 3 merge inverse indexes (kernel launches) per
+   step;
 7. eval / throughput: the entry point ``ml_autofocusformermod_torch.main``
    with ``--eval`` over a few synthetic batches, then ``--throughput`` at
    b = 128 in bf16 (50 warmup + 30 timed forwards);
@@ -66,10 +80,16 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
+
+# the AFF-Mini shapes, the timers and the input builders, shared with the
+# A/B timing tool
+from ml_autofocusformermod_torch.time_kernels import (
+    ATTN_STAGES, CS, IC, MERGES, attention_inputs, clustered_stage,
+    device_ms, merge_inputs, time_ms,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # non-tensor f32; bf16 TC
@@ -85,15 +105,11 @@ KERNELS = {
                               TPU_CLUSTEN + "1764", [TPU_CLUSTEN + "1127"]),
     "cluster_merge_fwd": ("cluster_merge.cu", TPU_MERGE + "199", []),
     "cluster_merge_bwd": ("cluster_merge_bwd.cu", TPU_MERGE + "304", []),
+    # the merge backward's inverse index: part of that kernel's port (the
+    # TPU kernel needs no index), a launch of its own before it
+    "merge_inverse_index": ("cluster_merge_bwd.cu", TPU_MERGE + "304", []),
 }
 
-# AFF-Mini 224: (tokens, heads, channels) of the local stages and the
-# attention launches per forward (= depth); merges: (n, n', c)
-ATTN_STAGES = [("stage1", 3136, 2, 32, 2), ("stage2", 784, 4, 128, 2),
-               ("stage3", 196, 8, 256, 6)]
-MERGES = [("merge1", 3136, 784, 32), ("merge2", 784, 196, 128),
-          ("merge3", 196, 49, 256)]
-CS, NNC, IC = 8, 6, 4
 # the attention kernels these replaced (one warp per (query, head)) at
 # these b128 bf16 shapes, ms per call as recorded by an earlier run of this
 # script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6), not
@@ -105,6 +121,15 @@ PREV_MS = {
     ("cluster_attention_bwd", "stage1"): 4.544,
     ("cluster_attention_bwd", "stage2"): 3.267,
     ("cluster_attention_bwd", "stage3"): 1.636,
+    # the merge kernels these replaced (one thread row per centre forward,
+    # one warp per (centre, slot) with f32 atomics backward), as recorded
+    # by the same script on the same card (PERF.md section 6)
+    ("cluster_merge_fwd", "merge1"): 0.225,
+    ("cluster_merge_fwd", "merge2"): 0.199,
+    ("cluster_merge_fwd", "merge3"): 0.096,
+    ("cluster_merge_bwd", "merge1"): 1.946,
+    ("cluster_merge_bwd", "merge2"): 0.664,
+    ("cluster_merge_bwd", "merge3"): 0.241,
 }
 # attention stress shapes, b = 2: (name, n, heads, c, cs, nnc, geometry,
 # rel_width, clamp_width). "clustered": positions on a 56 x 56 canvas,
@@ -120,6 +145,22 @@ STRESS = [("n1921_clamp9", 1921, 8, 256, 8, 6, "clustered", 4, 9),
           ("wide_c556", 196, 2, 1112, 8, 6, "clustered", 55, 0),
           ("wide_c1440", 196, 1, 1440, 8, 6, "clustered", 55, 0),
           ("m760_repeats", 990, 2, 32, 40, 19, "repeats", 55, 0)]
+# merge stress shapes: (name, n, n', c, cs, nnc, geometry, b), geometry as
+# in merge_inputs. m = 760 was refused by the forward before the kernels
+# were redesigned; AFF-Base-384's first merge does not fit an image's f32
+# features in shared memory; AFF-Base's third merge has c = 512 and a
+# padded last cluster; merge1 at b = 1 is the single-image forward.
+MERGE_STRESS = [
+    ("merge_m760_repeats", 990, 247, 32, 40, 19, "repeats", 2),
+    ("merge_random_ncc", 784, 196, 128, 8, 6, "random", 2),
+    ("merge_aff_base384", 9216, 2304, 128, 24, 6, "clustered", 2),
+    ("merge_base_c512", 196, 49, 512, 8, 6, "clustered", 2),
+    ("merge_b1", 3136, 784, 32, 8, 6, "stage", 1),
+]
+# the inverse index alone, b = 2, clusters drawn with replacement: (name,
+# n, n', cs, nnc); more clusters than the index kernel's 512-cluster range
+INDEX_STRESS = [("index_k525", 4200, 1050, 8, 6),
+                ("index_k17500", 140000, 50, 8, 6)]
 
 
 def emit(obj) -> None:
@@ -133,25 +174,6 @@ def smi_name_power() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call of ``fn``, by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
 def bound_ms(nbytes: float, flops: float, dtype_name: str):
@@ -177,50 +199,13 @@ def nbytes(*tensors) -> int:
 
 # ------------------------------------------------------------- inputs ----
 
-def clustered_stage(torch, gen, b, n, hw, dev, cs=CS, nnc=NNC):
-    """Positions of a later stage (distinct cells of an hw x hw canvas),
-    clustered and kNN'd by the port: (pos (b,n,2), ncc (b,n,nnc) int32)."""
-    from ml_autofocusformermod_torch.ops.knn import knn
-    from ml_autofocusformermod_torch.ops.sfc import space_filling_cluster
-
-    cells = torch.stack([torch.randperm(hw * hw, generator=gen)[:n]
-                         for _ in range(b)])
-    pos = torch.stack([cells % hw, cells // hw], -1).float().to(dev)
-    pos, mean, _, _, _ = space_filling_cluster(pos, cs, hw, hw)
-    return pos.contiguous(), knn(pos, mean, nnc).contiguous()
-
-
-def stage_geometry(torch, gen, b, n, dev):
-    from ml_autofocusformermod_torch.ops.sfc import grid_tensors
-
-    if n == 3136:  # on-grid stage 1: host constants, batch-broadcast
-        g_pos, _, g_ncc = grid_tensors(56, 56, CS, NNC, dev)
-        return g_pos[None].expand(b, n, 2), g_ncc[None].expand(b, n, NNC)
-    return clustered_stage(torch, gen, b, n, 56, dev)
-
-
-def attention_inputs(torch, gen, b, n, h, c, dev, dtype):
-    pos, ncc = stage_geometry(torch, gen, b, n, dev)
-    c_ = c // h
-
-    def rnd(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen) * scale).to(dev)
-
-    return dict(
-        q=rnd(b, n, c, scale=c_**-0.5).to(dtype),
-        kv=rnd(b, n, 2 * c).to(dtype), ncc=ncc, pos=pos,
-        pe_kernel=rnd(5, h, scale=0.1), pe_bias=rnd(h, scale=0.1),
-        blank_k=rnd(c_, h, scale=0.5), blank_v=rnd(h, c_, scale=0.5),
-    )
-
-
 def stress_inputs(torch, gen, shape, b, dev, dtype):
     """Attention inputs of one ``STRESS`` shape and its (h, cs, R,
     clamp_width)."""
     _, n, h, c, cs, nnc, geometry, R, clamp = shape
-    a = attention_inputs(torch, gen, b, n, h, c, dev, dtype)
+    a = attention_inputs(gen, b, n, h, c, dev, dtype)
     if geometry == "clustered":
-        a["pos"], a["ncc"] = clustered_stage(torch, gen, b, n, 56, dev, cs,
+        a["pos"], a["ncc"] = clustered_stage(gen, b, n, 56, dev, cs,
                                              nnc)
     elif geometry == "random":
         k = -(-n // cs)
@@ -231,16 +216,6 @@ def stress_inputs(torch, gen, shape, b, dev, dtype):
         a["ncc"] = torch.randint(0, k, (b, n, nnc), generator=gen).to(
             dev, torch.int32)
     return a, (h, cs, R, clamp)
-
-
-def merge_inputs(torch, gen, b, n, n_, c, dev, dtype):
-    _, ncc = stage_geometry(torch, gen, b, n, dev)
-    centres = torch.stack([torch.randperm(n, generator=gen)[:n_]
-                           for _ in range(b)]).to(dev)
-    sel = torch.gather(ncc, 1, centres[..., None].expand(b, n_, NNC))
-    w = torch.randn(b, n_, NNC * CS, IC, generator=gen).to(dev, dtype)
-    feat = torch.randn(b, n, c, generator=gen).to(dev, dtype)
-    return w, feat, sel.contiguous()
 
 
 def attn_work(torch, args, h, cs):
@@ -375,20 +350,17 @@ def phase_kernels(torch):
     from ml_autofocusformermod_torch.ops.cluster_attention import (
         cluster_attention_reference, fused_cluster_attention, tile_metadata,
     )
-    from ml_autofocusformermod_torch.ops.cluster_merge import (
-        cluster_merge_reference, fused_cluster_merge,
-    )
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     names = ["q", "kv", "ncc", "pos", "pe_kernel", "pe_bias", "blank_k",
              "blank_v"]
     R = 224 // 4 - 1
-    rows = {"attention": [], "merge": []}
+    rows = {"attention": []}
     for label, n, h, c, per_fwd in ATTN_STAGES:
         errs = []
         for dtype in (torch.float32, torch.bfloat16):
-            a = attention_inputs(torch, gen, 8, n, h, c, dev, dtype)
+            a = attention_inputs(gen, 8, n, h, c, dev, dtype)
             out = fused_cluster_attention(*(a[k] for k in names), h, CS, R)
             ref_args = dict(a, q=a["q"].float(), kv=a["kv"].float())
             ref = cluster_attention_reference(
@@ -396,7 +368,7 @@ def phase_kernels(torch):
             torch.cuda.synchronize()
             errs.append(check(f"attention_{label}",
                               str(dtype).split(".")[1], out, ref))
-        a = attention_inputs(torch, gen, 128, n, h, c, dev, torch.bfloat16)
+        a = attention_inputs(gen, 128, n, h, c, dev, torch.bfloat16)
         args = [a[k] for k in names]
         # as the model calls it: the stage's tile metadata made once
         meta = tile_metadata(a["ncc"])
@@ -406,6 +378,8 @@ def phase_kernels(torch):
         errs.append(check(f"attention_{label}_b128", "bfloat16", out, ref))
         ms = time_ms(lambda: fused_cluster_attention(*args, h, CS, R,
                                                      meta=meta))
+        dev_ms = device_ms(lambda: fused_cluster_attention(*args, h, CS, R,
+                                                           meta=meta))
         meta_ms = time_ms(lambda: tile_metadata(a["ncc"]))
         plain = time_ms(lambda: cluster_attention_reference(*args, h, CS, R),
                         iters=5, warmup=1)
@@ -413,8 +387,8 @@ def phase_kernels(torch):
         bms, by = bound_ms(moved, flops, "bfloat16")
         rows["attention"].append(dict(
             shape=label, b=128, n=n, heads=h, c=c, per_pass=per_fwd,
-            ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, bytes=moved,
-            flops=flops, max_abs_err=max(errs)))
+            ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bms,
+            bound_by=by, bytes=moved, flops=flops, max_abs_err=max(errs)))
         emit({"phase": "kernel_time", "kernel": "cluster_attention_fwd",
               **rows["attention"][-1], "tile_metadata_ms": meta_ms,
               **prev("cluster_attention_fwd", rows["attention"][-1])})
@@ -431,31 +405,6 @@ def phase_kernels(torch):
             check(f"attention_stress_{shape[0]}", str(dtype).split(".")[1],
                   out, ref)
         emit_union(torch, shape[0], a["ncc"])
-    for label, n, n_, c in MERGES:
-        errs = []
-        for dtype in (torch.float32, torch.bfloat16):
-            w, f, ncc = merge_inputs(torch, gen, 8, n, n_, c, dev, dtype)
-            out = fused_cluster_merge(w, f, ncc, CS)
-            ref = cluster_merge_reference(w.float(), f.float(), ncc, CS)
-            torch.cuda.synchronize()
-            errs.append(check(label, str(dtype).split(".")[1], out, ref))
-        w, f, ncc = merge_inputs(torch, gen, 128, n, n_, c, dev,
-                                 torch.bfloat16)
-        out = fused_cluster_merge(w, f, ncc, CS)
-        ref = cluster_merge_reference(w.float(), f.float(), ncc, CS)
-        torch.cuda.synchronize()
-        errs.append(check(f"{label}_b128", "bfloat16", out, ref))
-        ms = time_ms(lambda: fused_cluster_merge(w, f, ncc, CS))
-        plain = time_ms(lambda: cluster_merge_reference(w, f, ncc, CS),
-                        iters=5, warmup=1)
-        moved, flops = merge_work(torch, w, f, ncc, CS)
-        bms, by = bound_ms(moved, flops, "bfloat16")
-        rows["merge"].append(dict(
-            shape=label, b=128, n=n, n_out=n_, c=c, per_pass=1, ms=ms,
-            plain_ms=plain, bound_ms=bms, bound_by=by, bytes=moved,
-            flops=flops, max_abs_err=max(errs)))
-        emit({"phase": "kernel_time", "kernel": "cluster_merge_fwd",
-              **rows["merge"][-1]})
     return rows
 
 
@@ -464,9 +413,6 @@ def phase_kernels_bwd(torch):
         cluster_attention_backward, cluster_attention_backward_reference,
         tile_metadata,
     )
-    from ml_autofocusformermod_torch.ops.cluster_merge import (
-        cluster_merge_backward, cluster_merge_backward_reference,
-    )
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
@@ -474,7 +420,7 @@ def phase_kernels_bwd(torch):
              "blank_v"]
     outs = ["dq", "dkv", "d_pe_kernel", "d_pe_bias", "d_blank_k", "d_blank_v"]
     R = 224 // 4 - 1
-    rows = {"attention": [], "merge": []}
+    rows = {"attention": []}
 
     def f32(t):
         return t.float() if t.is_floating_point() else t
@@ -486,7 +432,7 @@ def phase_kernels_bwd(torch):
         errs = []
         for b, dtype in ((8, torch.float32), (8, torch.bfloat16),
                          (128, torch.bfloat16)):
-            a = attention_inputs(torch, gen, b, n, h, c, dev, dtype)
+            a = attention_inputs(gen, b, n, h, c, dev, dtype)
             g = torch.randn(b, n, c, generator=gen).to(dev, dtype)
             args = [a[k] for k in names]
             got = cluster_attention_backward(*args, g, h, CS, R)
@@ -499,14 +445,16 @@ def phase_kernels_bwd(torch):
         meta = tile_metadata(a["ncc"])  # once per stage, as in the model
         ms = time_ms(lambda: cluster_attention_backward(*args, g, h, CS, R,
                                                         meta=meta))
+        dev_ms = device_ms(lambda: cluster_attention_backward(
+            *args, g, h, CS, R, meta=meta))
         plain = time_ms(lambda: cluster_attention_backward_reference(
             *args, g, h, CS, R), iters=5, warmup=1)
         moved, flops = attn_bwd_work(torch, a, g, h, CS)
         bms, by = bound_ms(moved, flops, "bfloat16")
         rows["attention"].append(dict(
             shape=label, b=128, n=n, heads=h, c=c, per_pass=per_step, ms=ms,
-            plain_ms=plain, bound_ms=bms, bound_by=by, bytes=moved,
-            flops=flops, max_abs_err=max(errs)))
+            device_ms=dev_ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+            bytes=moved, flops=flops, max_abs_err=max(errs)))
         emit({"phase": "kernel_time", "kernel": "cluster_attention_bwd",
               **rows["attention"][-1],
               **prev("cluster_attention_bwd", rows["attention"][-1])})
@@ -525,30 +473,139 @@ def phase_kernels_bwd(torch):
             for o, x, y in zip(outs, got, want):
                 check(f"attention_bwd_stress_{shape[0]}_{o}",
                       str(dtype).split(".")[1], x, y)
+    return rows
+
+
+def phase_merge(torch):
+    """The merge kernels, both directions, and the inverse-index kernel: the
+    AFF-Mini shapes (b = 8 fp32 and bf16, b = 128 bf16 with times), the
+    stress shapes (b = 2, fp32 and bf16, the backward's plain version in
+    f64), and the backward's bitwise reproducibility at merge 1, b = 128
+    bf16."""
+    from ml_autofocusformermod_torch.ops.cluster_merge import (
+        cluster_merge_backward, cluster_merge_backward_reference,
+        cluster_merge_reference, fused_cluster_merge, merge_inverse_index,
+        merge_inverse_index_reference,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    rows = {"cluster_merge_fwd": [], "cluster_merge_bwd": [],
+            "merge_inverse_index": []}
+
+    def name(dtype):
+        return str(dtype).split(".")[1]
+
+    def check_index(tag, ncc, n, cs):
+        """The index kernel against its plain version: the same lists."""
+        got = merge_inverse_index(ncc, n, cs)
+        want = merge_inverse_index_reference(ncc, n, cs)
+        torch.cuda.synchronize()
+        err = max((x.long() - y.long()).abs().max().item()
+                  for x, y in zip(got, want))
+        ok = all(torch.equal(x, y) for x, y in zip(got, want))
+        emit({"phase": "kernel_check", "shape": f"{tag}_index",
+              "dtype": "int32", "max_abs_err": err, "equal": ok, "ok": ok})
+        if not ok:
+            raise AssertionError(f"{tag}: merge inverse index differs")
+        return got, err
+
+    def check_both(tag, b, n, n_, c, dtype, f64=False, **geo):
+        """Forward, backward and inverse index of one merge against the
+        plain versions; returns (inputs, g, the worst forward, backward and
+        index errors, the index)."""
+        cs = geo.get("cs", CS)
+        w, f, ncc = merge_inputs(gen, b, n, n_, c, dev, dtype, **geo)
+        g = torch.randn(b, n_, IC, c, generator=gen).to(dev, dtype)
+        ref_t = torch.float64 if f64 else torch.float32
+        out = fused_cluster_merge(w, f, ncc, cs)
+        ref = cluster_merge_reference(w.float(), f.float(), ncc, cs)
+        got = cluster_merge_backward(w, f, ncc, cs, g)
+        want = cluster_merge_backward_reference(
+            w.to(ref_t), f.to(ref_t), ncc, cs, g.to(ref_t))
+        torch.cuda.synchronize()
+        if out.dtype != dtype or any(x.dtype != dtype for x in got):
+            raise AssertionError(f"{tag}: outputs not in {dtype}")
+        e_f = check(tag, name(dtype), out, ref)
+        e_b = max(check(f"{tag}_bwd_{o}", name(dtype), x, y)
+                  for o, x, y in zip(("dw", "dfeat"), got, want))
+        index, e_i = check_index(tag, ncc, n, cs)
+        return (w, f, ncc, g), (e_f, e_b, e_i), index
+
+    def timed(kernel, row, fn, plain, **extra):
+        """``row`` with the kernel's per-call time (``ms``, as the model
+        calls it), its device time with calls queued (``device_ms``) and
+        the plain version's; emitted as a kernel_time line."""
+        row.update(ms=time_ms(fn), device_ms=device_ms(fn),
+                   plain_ms=time_ms(plain, iters=5, warmup=1))
+        rows[kernel].append(row)
+        emit({"phase": "kernel_time", "kernel": kernel, **row, **extra})
+        return row
+
     for label, n, n_, c in MERGES:
         errs = []
         for b, dtype in ((8, torch.float32), (8, torch.bfloat16),
                          (128, torch.bfloat16)):
-            w, f, ncc = merge_inputs(torch, gen, b, n, n_, c, dev, dtype)
-            g = torch.randn(b, n_, IC, c, generator=gen).to(dev, dtype)
-            got = cluster_merge_backward(w, f, ncc, CS, g)
-            want = cluster_merge_backward_reference(w.float(), f.float(), ncc,
-                                                    CS, g.float())
-            torch.cuda.synchronize()
-            tag = f"{label}_bwd" + ("_b128" if b == 128 else "")
-            for o, x, y in zip(("dw", "dfeat"), got, want):
-                errs.append(check(f"{tag}_{o}", str(dtype).split(".")[1], x, y))
-        ms = time_ms(lambda: cluster_merge_backward(w, f, ncc, CS, g))
-        plain = time_ms(lambda: cluster_merge_backward_reference(
-            w, f, ncc, CS, g), iters=5, warmup=1)
+            tag = label + ("_b128" if b == 128 else "")
+            (w, f, ncc, g), err, _ = check_both(tag, b, n, n_, c, dtype)
+            errs.append(err)
+        errs_f, errs_b, errs_i = zip(*errs)
+        shape = dict(shape=label, b=128, n=n, n_out=n_, c=c, per_pass=1)
+        moved, flops = merge_work(torch, w, f, ncc, CS)
+        bms, by = bound_ms(moved, flops, "bfloat16")
+        row = dict(shape, bound_ms=bms, bound_by=by, bytes=moved,
+                   flops=flops, max_abs_err=max(errs_f))
+        timed("cluster_merge_fwd", row,
+              lambda: fused_cluster_merge(w, f, ncc, CS),
+              lambda: cluster_merge_reference(w, f, ncc, CS),
+              **prev("cluster_merge_fwd", row))
+        # the inverse index alone: ncc read once, the lists written once
+        k = -(-n // CS)
+        moved = nbytes(ncc) * 2 + 128 * (k + 1) * 4
+        bms, by = bound_ms(moved, 0, "float32")
+        index_row = timed(
+            "merge_inverse_index",
+            dict(shape, bound_ms=bms, bound_by=by, bytes=moved, flops=0,
+                 max_abs_err=max(errs_i)),
+            lambda: merge_inverse_index(ncc, n, CS),
+            lambda: merge_inverse_index_reference(ncc, n, CS))
+        # as the model calls it: the backward makes its index inside
         moved, flops = merge_bwd_work(torch, w, f, ncc, g, CS)
         bms, by = bound_ms(moved, flops, "bfloat16")
-        rows["merge"].append(dict(
-            shape=label, b=128, n=n, n_out=n_, c=c, per_pass=1, ms=ms,
-            plain_ms=plain, bound_ms=bms, bound_by=by, bytes=moved,
-            flops=flops, max_abs_err=max(errs)))
-        emit({"phase": "kernel_time", "kernel": "cluster_merge_bwd",
-              **rows["merge"][-1]})
+        row = dict(shape, bound_ms=bms, bound_by=by, bytes=moved,
+                   flops=flops, max_abs_err=max(errs_b))
+        timed("cluster_merge_bwd", row,
+              lambda: cluster_merge_backward(w, f, ncc, CS, g),
+              lambda: cluster_merge_backward_reference(w, f, ncc, CS, g),
+              merge_index_ms=index_row["ms"],
+              **prev("cluster_merge_bwd", row))
+        if label == "merge1":
+            a = cluster_merge_backward(w, f, ncc, CS, g)
+            z = cluster_merge_backward(w, f, ncc, CS, g)
+            torch.cuda.synchronize()
+            same = [torch.equal(x, y) for x, y in zip(a, z)]
+            emit({"phase": "merge_bwd_deterministic", "shape": label,
+                  "b": 128, "dtype": "bfloat16", "dw_equal": same[0],
+                  "dfeat_equal": same[1], "ok": all(same)})
+            if not all(same):
+                raise AssertionError("merge backward not bitwise reproducible")
+    for label, n, n_, c, cs, nnc, geometry, b in MERGE_STRESS:
+        for dtype in (torch.float32, torch.bfloat16):
+            geo = ({} if geometry == "stage" else
+                   dict(cs=cs, nnc=nnc, geometry=geometry, hw=96 if n > 3136
+                        else 56))
+            _, _, index = check_both(label, b, n, n_, c, dtype, f64=True,
+                                     **geo)
+        counts = index.offset.diff(dim=1)
+        emit({"phase": "merge_lists", "shape": label, "b": b, "n": n,
+              "n_out": n_, "c": c, "cs": cs, "nnc": nnc,
+              "clusters_named_by_none": int((counts == 0).sum().item()),
+              "list_max": int(counts.max().item()),
+              "list_mean": counts.float().mean().item()})
+    for label, n, n_, cs, nnc in INDEX_STRESS:
+        ncc = torch.randint(0, -(-n // cs), (2, n_, nnc), generator=gen).to(
+            dev, torch.int32)
+        check_index(label, ncc, n, cs)
     return rows
 
 
@@ -570,7 +627,7 @@ def phase_model(torch):
         fused_cluster_attention, tile_metadata,
     )
     from ml_autofocusformermod_torch.ops.cluster_merge import (
-        fused_cluster_merge,
+        fused_cluster_merge, merge_inverse_index,
     )
 
     cfg = mini_config(["TPU.COMPUTE_DTYPE", "float32"])
@@ -584,11 +641,13 @@ def phase_model(torch):
             fused_cluster_attention.launches = 0
             fused_cluster_merge.launches = 0
             tile_metadata.calls = 0
+            merge_inverse_index.calls = 0
             out = gpu(x.cuda()).float().cpu()
             torch.cuda.synchronize()
             launches = (fused_cluster_attention.launches,
                         fused_cluster_merge.launches)
             meta_calls = tile_metadata.calls
+            index_calls = merge_inverse_index.calls
             ref = build_model(cfg, "cpu", seed=0)(x).float()
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
@@ -596,31 +655,33 @@ def phase_model(torch):
     same_argmax = bool((out.argmax(-1) == ref.argmax(-1)).all())
     # stages 2 and 3 make their metadata; stage 1's is the cached grid's
     ok = (err <= 1e-3 and same_argmax and launches == (10, 3)
-          and meta_calls <= 3
+          and meta_calls <= 3 and index_calls == 0
           and bool(out.isfinite().all()) and out.shape == (2, 1000))
     emit({"phase": "model_check", "model": "aff_mini_224", "dtype": "float32",
           "b": 2, "max_abs_err_vs_cpu": err, "same_argmax": same_argmax,
           "launches_per_forward": {"cluster_attention_fwd": launches[0],
                                    "cluster_merge_fwd": launches[1]},
-          "tile_metadata_calls": meta_calls, "ok": ok})
+          "tile_metadata_calls": meta_calls,
+          "merge_inverse_index_calls": index_calls, "ok": ok})
     if not ok:
         raise AssertionError("AFF-Mini GPU forward disagrees with the CPU "
                              "plain path or launched the wrong kernel count")
 
 
 def counters():
-    """The launch counters of the four kernel wrappers, by kernel name."""
+    """The launch counters of the kernel wrappers, by kernel name."""
     from ml_autofocusformermod_torch.ops.cluster_attention import (
         cluster_attention_backward, fused_cluster_attention,
     )
     from ml_autofocusformermod_torch.ops.cluster_merge import (
-        cluster_merge_backward, fused_cluster_merge,
+        cluster_merge_backward, fused_cluster_merge, merge_inverse_index,
     )
 
     return {"cluster_attention_fwd": fused_cluster_attention,
             "cluster_attention_bwd": cluster_attention_backward,
             "cluster_merge_fwd": fused_cluster_merge,
-            "cluster_merge_bwd": cluster_merge_backward}
+            "cluster_merge_bwd": cluster_merge_backward,
+            "merge_inverse_index": merge_inverse_index}
 
 
 def zero_counters():
@@ -636,6 +697,9 @@ def phase_train_check(torch):
     import numpy as np
 
     from ml_autofocusformermod_torch.models.build import build_model
+    from ml_autofocusformermod_torch.ops.cluster_merge import (
+        merge_inverse_index,
+    )
     from ml_autofocusformermod_torch.train.trainer import (
         create_train_state, make_train_step,
     )
@@ -660,9 +724,11 @@ def phase_train_check(torch):
     torch.backends.cudnn.allow_tf32 = False  # the patch-embed convs
     try:
         zero_counters()
+        merge_inverse_index.calls = 0
         out, grads, stats = one_step("cuda")
         torch.cuda.synchronize()
         launches = read_counters()
+        index_calls = merge_inverse_index.calls
         ref, ref_grads, ref_stats = one_step("cpu")
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
@@ -682,18 +748,20 @@ def phase_train_check(torch):
                    / max(t.abs().max().item(), 1e-30)
                    for k, t in ref_stats.items())
     want = {"cluster_attention_fwd": 10, "cluster_attention_bwd": 10,
-            "cluster_merge_fwd": 3, "cluster_merge_bwd": 3}
+            "cluster_merge_fwd": 3, "cluster_merge_bwd": 3,
+            "merge_inverse_index": 3}
     ok = (abs(loss - ref_loss) <= 1e-4 * abs(ref_loss)
           and abs(gn - ref_gn) <= 1e-4 * abs(ref_gn)
           and worst[0] <= 1e-3 and stat_err <= 1e-5
-          and launches == want and out["grads_finite"]
+          and launches == want and index_calls == 3 and out["grads_finite"]
           and math.isfinite(loss))
     emit({"phase": "train_check", "model": "aff_mini_224", "dtype": "float32",
           "b": 2, "loss": loss, "loss_cpu": ref_loss, "grad_norm": gn,
           "grad_norm_cpu": ref_gn, "worst_grad_rel_err": worst[0],
           "worst_grad": worst[1], "grads_at_floor": floored,
           "bn_stats_rel_err": stat_err,
-          "launches_per_step": launches, "ok": ok})
+          "launches_per_step": launches,
+          "merge_inverse_index_calls": index_calls, "ok": ok})
     if not ok:
         raise AssertionError("AFF-Mini GPU train step disagrees with the CPU "
                              "plain path or launched the wrong kernel count")
@@ -713,12 +781,13 @@ def run_main(torch, argv):
 
 
 def expect(fwd_passes, train_steps=0):
-    """Launches of the four kernels for ``fwd_passes`` forwards outside
+    """Launches of the kernels for ``fwd_passes`` forwards outside
     training and ``train_steps`` train steps of AFF-Mini."""
     f = fwd_passes + train_steps
     return {"cluster_attention_fwd": 10 * f,
             "cluster_attention_bwd": 10 * train_steps,
-            "cluster_merge_fwd": 3 * f, "cluster_merge_bwd": 3 * train_steps}
+            "cluster_merge_fwd": 3 * f, "cluster_merge_bwd": 3 * train_steps,
+            "merge_inverse_index": 3 * train_steps}
 
 
 def phase_entry(torch, smi):
@@ -791,7 +860,7 @@ def phase_train(torch, smi):
 
 def kernels_line(rows, launches):
     """One entry per CUDA kernel: launches in the training run of the entry
-    point (the path that runs all four), the worst check error, and per
+    point (the path that runs them all), the worst check error, and per
     AFF-Mini b128 bf16 pass (a forward for the forward kernels, a backward
     for the backward kernels) the sum of the per-call times over the
     pass's launches."""
@@ -806,7 +875,8 @@ def kernels_line(rows, launches):
             "replaces": replaces, "also_replaces": also,
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
-            "ms": total(rs, "ms"), "plain_ms": total(rs, "plain_ms"),
+            "ms": total(rs, "ms"), "device_ms": total(rs, "device_ms"),
+            "plain_ms": total(rs, "plain_ms"),
             "bound_ms": total(rs, "bound_ms"),
             "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rs)
                          else "operations"),
@@ -825,8 +895,7 @@ def main() -> int:
     bwd = phase_kernels_bwd(torch)
     rows = {"cluster_attention_fwd": fwd["attention"],
             "cluster_attention_bwd": bwd["attention"],
-            "cluster_merge_fwd": fwd["merge"],
-            "cluster_merge_bwd": bwd["merge"]}
+            **phase_merge(torch)}
     phase_model(torch)
     phase_train_check(torch)
     phase_entry(torch, smi)

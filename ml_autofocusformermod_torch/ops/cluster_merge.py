@@ -7,12 +7,19 @@ CUDA tensor and runs :func:`cluster_merge_reference`, the plain PyTorch
 version, on a CPU tensor; its backward (:func:`cluster_merge_backward`)
 launches ``csrc/cluster_merge_bwd.cu`` on a CUDA tensor and runs
 :func:`cluster_merge_backward_reference` on a CPU tensor. There is no
-fallback between the two.
+fallback between the two. The backward kernel owns clusters, not centres:
+:func:`merge_inverse_index` (a counting-sort kernel on the card, its plain
+version :func:`merge_inverse_index_reference` on the CPU) lists, per
+cluster, the (centre, slot) pairs that name it, so every dw and dfeat
+entry is written once, without atomics, and the gradients are bitwise
+reproducible on the card. Without a gradient to take, the forward runs
+outside autograd.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -21,11 +28,12 @@ from .cluster_gather import cluster_token_index, gather_clusters
 from .clusten import wf_contract
 
 __all__ = ["fused_cluster_merge", "cluster_merge_reference",
-           "cluster_merge_backward", "cluster_merge_backward_reference"]
+           "cluster_merge_backward", "cluster_merge_backward_reference",
+           "MergeIndex", "merge_inverse_index",
+           "merge_inverse_index_reference"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_IC = 4  # csrc/cluster_merge{,_bwd}.cu::kIC
-_SHMEM_LIMIT = 48 * 1024
+_IC = 4  # csrc/cluster_merge_tile.cuh::kIC
 
 
 def cluster_merge_reference(weights, feat, ncc, cluster_size):
@@ -86,6 +94,35 @@ def _check_cuda_args(weights, feat, ncc, cluster_size):
         raise ValueError("weights, feat and ncc must be contiguous")
 
 
+def _aligned(t):
+    """``t``, or a copy of it when its data does not start 16-byte aligned
+    (the kernels read rows in 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+_ENTRY = {}
+
+
+def _launch(lib, name, n_ptr, device, *args):
+    """Calls the C entry point ``name`` of ``csrc/<lib>.cu`` (pointers,
+    then ints, then the stream) on ``device``'s current stream; returns
+    its cudaError_t. The entry point is typed once: the wrappers sit on
+    the model's host-bound path."""
+    fn = _ENTRY.get(name)
+    if fn is None:
+        fn = getattr(_build.library(lib), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr
+                       + [ctypes.c_int] * (len(args) - n_ptr)
+                       + [ctypes.c_void_p])
+        _ENTRY[name] = fn
+    index = device.index
+    if index is not None and index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
 def _merge_forward(weights, feat, ncc, cluster_size):
     """The forward: the CUDA kernel on a CUDA tensor (counted in
     ``fused_cluster_merge.launches``), the plain version on the CPU."""
@@ -94,37 +131,94 @@ def _merge_forward(weights, feat, ncc, cluster_size):
     if weights.device.type != "cuda":
         raise ValueError(f"unsupported device {weights.device}")
     _check_cuda_args(weights, feat, ncc, cluster_size)
+    weights, feat = _aligned(weights), _aligned(feat)
     b, n_, m, ic = weights.shape
     n, c = feat.shape[1], feat.shape[2]
     nnc = ncc.shape[-1]
-    tx = min(-(-c // 32) * 32, 256)
-    shmem = 4 * (256 // tx) * m * (_IC + 1)
-    if shmem > _SHMEM_LIMIT:
-        raise ValueError(f"m={m} needs {shmem} B of shared memory per block")
     out = torch.empty((b, n_, ic, c), dtype=weights.dtype,
                       device=weights.device)
-    lib = _build.library("cluster_merge")
-    fn = lib.cluster_merge_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    with torch.cuda.device(weights.device):
-        stream = torch.cuda.current_stream(weights.device).cuda_stream
-        rc = fn(weights.data_ptr(), feat.data_ptr(), ncc.data_ptr(),
-                out.data_ptr(), b, n, n_, c, nnc, cluster_size,
-                _DTYPE_CODE[weights.dtype], stream)
+    rc = _launch("cluster_merge", "cluster_merge_fwd", 4, weights.device,
+                 weights.data_ptr(), feat.data_ptr(), ncc.data_ptr(),
+                 out.data_ptr(), b, n, n_, c, nnc, cluster_size,
+                 _DTYPE_CODE[weights.dtype])
     if rc != 0:
         raise RuntimeError(f"cluster_merge_fwd launch failed: CUDA error {rc}")
     fused_cluster_merge.launches += 1
     return out
 
 
+class MergeIndex(NamedTuple):
+    """The clusters' lists of the (centre, slot) pairs that name them.
+
+    ``entry`` (b, n' * nnc) int32: per image, the flat pairs ``t * nnc + j``
+    ordered by cluster ``ncc[t, j]``, ties by ``(t, j)`` ascending;
+    ``offset`` (b, k + 1) int32: cluster ``kappa``'s list is
+    ``entry[bi, offset[bi, kappa]:offset[bi, kappa + 1]]``.
+    """
+
+    entry: torch.Tensor
+    offset: torch.Tensor
+
+
+def merge_inverse_index_reference(ncc, n, cluster_size):
+    """Plain version of :func:`merge_inverse_index`: one stable sort of the
+    flattened ids and a ``searchsorted`` for the bounds."""
+    b, n_, nnc = ncc.shape
+    k = -(-n // cluster_size)
+    image = torch.arange(b, dtype=torch.int32, device=ncc.device)[:, None]
+    key = (ncc.reshape(b, n_ * nnc) + image * k).reshape(-1)
+    srt, order = torch.sort(key, stable=True)
+    entry = (order.view(b, n_ * nnc) - image * (n_ * nnc)).to(torch.int32)
+    # each image's k + 1 cluster bounds among its own sorted ids
+    bounds = image * k + torch.arange(k + 1, dtype=torch.int32,
+                                      device=ncc.device)
+    offset = torch.searchsorted(srt, bounds) - image * (n_ * nnc)
+    return MergeIndex(entry, offset.to(torch.int32))
+
+
+def merge_inverse_index(ncc, n, cluster_size):
+    """:class:`MergeIndex` of the (b, n', nnc) int32 cluster indices ``ncc``
+    (each in ``[0, k)``, ``k = ceil(n / cluster_size)``), on ``ncc``'s
+    device. Counted in ``merge_inverse_index.calls``. On a CUDA tensor one
+    launch of the counting sort in ``csrc/cluster_merge_bwd.cu`` (counted
+    in ``merge_inverse_index.launches``); on a CPU tensor
+    :func:`merge_inverse_index_reference`."""
+    merge_inverse_index.calls += 1
+    if ncc.device.type == "cpu":
+        return merge_inverse_index_reference(ncc, n, cluster_size)
+    if ncc.device.type != "cuda":
+        raise ValueError(f"unsupported device {ncc.device}")
+    if ncc.dtype != torch.int32 or not ncc.is_contiguous():
+        raise TypeError("ncc must be contiguous int32")
+    b, n_, nnc = ncc.shape
+    k = -(-n // cluster_size)
+    lists = -(-b * n_ * nnc // 4) * 4  # the offsets start 16-byte aligned
+    buf = torch.empty(lists + b * (k + 1), dtype=torch.int32,
+                      device=ncc.device)
+    entry = buf[:b * n_ * nnc].view(b, n_ * nnc)
+    offset = buf[lists:].view(b, k + 1)
+    rc = _launch("cluster_merge_bwd", "merge_inverse_index", 3, ncc.device,
+                 ncc.data_ptr(), entry.data_ptr(), offset.data_ptr(), b,
+                 n_ * nnc, k)
+    if rc != 0:
+        raise RuntimeError(f"merge_inverse_index launch failed: CUDA error "
+                           f"{rc}")
+    merge_inverse_index.launches += 1
+    return MergeIndex(entry, offset)
+
+
+merge_inverse_index.calls = 0
+merge_inverse_index.launches = 0
+
+
 def cluster_merge_backward(weights, feat, ncc, cluster_size, g):
     """``(dw, dfeat)`` of the merge for the output gradient ``g``
-    ``(b, n', ic, c)``: dw in the weights' dtype, dfeat accumulated in f32
-    and returned in feat's dtype.
+    ``(b, n', ic, c)``: dw in the weights' dtype, dfeat summed in f32 and
+    returned in feat's dtype.
 
-    On a CUDA tensor this launches ``csrc/cluster_merge_bwd.cu`` (and adds
-    one to ``cluster_merge_backward.launches``); on a CPU tensor it runs
+    On a CUDA tensor this makes the :func:`merge_inverse_index` of ``ncc``
+    and launches ``csrc/cluster_merge_bwd.cu`` on it (adding one to
+    ``cluster_merge_backward.launches``); on a CPU tensor it runs
     :func:`cluster_merge_backward_reference`.
     """
     if weights.device.type == "cpu":
@@ -141,21 +235,19 @@ def cluster_merge_backward(weights, feat, ncc, cluster_size, g):
         raise ValueError(f"g must be contiguous {weights.dtype} "
                          f"{(b, n_, ic, c)} on {weights.device}, got "
                          f"{g.dtype} {tuple(g.shape)}")
+    weights, feat, g = _aligned(weights), _aligned(feat), _aligned(g)
+    index = merge_inverse_index(ncc, n, cluster_size)
     dw = torch.empty_like(weights)
-    dfeat = torch.zeros((b, n, c), dtype=torch.float32, device=feat.device)
-    lib = _build.library("cluster_merge_bwd")
-    fn = lib.cluster_merge_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    with torch.cuda.device(weights.device):
-        stream = torch.cuda.current_stream(weights.device).cuda_stream
-        rc = fn(weights.data_ptr(), feat.data_ptr(), ncc.data_ptr(),
-                g.data_ptr(), dw.data_ptr(), dfeat.data_ptr(), b, n, n_, c,
-                nnc, cluster_size, _DTYPE_CODE[weights.dtype], stream)
+    dfeat = torch.empty_like(feat)
+    rc = _launch("cluster_merge_bwd", "cluster_merge_bwd", 7, weights.device,
+                 weights.data_ptr(), feat.data_ptr(), g.data_ptr(),
+                 index.entry.data_ptr(), index.offset.data_ptr(),
+                 dw.data_ptr(), dfeat.data_ptr(), b, n, n_, c, nnc,
+                 cluster_size, _DTYPE_CODE[weights.dtype])
     if rc != 0:
         raise RuntimeError(f"cluster_merge_bwd launch failed: CUDA error {rc}")
     cluster_merge_backward.launches += 1
-    return dw, dfeat.to(feat.dtype)
+    return dw, dfeat
 
 
 cluster_merge_backward.launches = 0
@@ -195,6 +287,9 @@ def fused_cluster_merge(weights, feat, ncc, cluster_size):
         ``(b, n', ic, c)`` in weights' dtype; rows of the padded last
         cluster contribute zero; accumulation in f32.
     """
+    if not (torch.is_grad_enabled()
+            and (weights.requires_grad or feat.requires_grad)):
+        return _merge_forward(weights, feat, ncc, cluster_size)
     return _FusedClusterMerge.apply(weights, feat, ncc, cluster_size)
 
 

@@ -1,0 +1,221 @@
+"""Times of the hand-written kernels at the AFF-Mini 224 b128 shapes, and
+the timers and inputs that ``chip_smoke.py`` uses for its kernel_time
+lines.
+
+    python3 -m ml_autofocusformermod_torch.time_kernels [--merge]
+        [--dtype bfloat16|float32] [LABEL]
+
+times this checkout: the attention kernels at stages 1-3 (each with its
+stage's tile metadata made beforehand, as the model calls them), or with
+``--merge`` the merge kernels at merges 1-3 (the backward makes its
+inverse index inside, as the model calls it). Run as a file from the root
+of another checkout, ``python3 <this checkout>/ml_autofocusformermod_torch/
+time_kernels.py [--merge] LABEL``, it times that checkout's kernels, so
+that several variants (or the parent and the change) can be timed on one
+card one after another. Prints one JSON line: per shape and direction
+``ms`` (:func:`time_ms`, single calls) and ``device_ms``
+(:func:`device_ms`, calls queued back to back), for the merges also the
+inverse index alone (where the checkout has one), and the card's
+``nvidia-smi`` name and power limit.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+# AFF-Mini 224: (label, tokens, heads, channels, attention launches per
+# forward) of the local stages; (label, n, n', c) of the merges
+ATTN_STAGES = [("stage1", 3136, 2, 32, 2), ("stage2", 784, 4, 128, 2),
+               ("stage3", 196, 8, 256, 6)]
+MERGES = [("merge1", 3136, 784, 32), ("merge2", 784, 196, 128),
+          ("merge3", 196, 49, 256)]
+CS, NNC, IC, R, B = 8, 6, 4, 55, 128
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median time of one call of ``fn``, by CUDA events around each call:
+    a call as the model makes it, the host's time to launch it included
+    when the device waits for the host."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def device_ms(fn, iters: int = 20, rounds: int = 5) -> float:
+    """Device time of one call of ``fn`` with the launch queue kept full:
+    per round the host enqueues ``iters`` calls behind a sleeping kernel,
+    so the events time the kernels back to back and not the host's time
+    to launch them. Median of the rounds' means."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)  # ~25 ms: longer than the enqueueing
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    return statistics.median(means)
+
+
+def clustered_stage(gen, b, n, hw, dev, cs=CS, nnc=NNC):
+    """Positions of a later stage (distinct cells of an hw x hw canvas),
+    clustered and kNN'd by the port: (pos (b,n,2), ncc (b,n,nnc) int32)."""
+    import torch
+
+    from ml_autofocusformermod_torch.ops.knn import knn
+    from ml_autofocusformermod_torch.ops.sfc import space_filling_cluster
+
+    cells = torch.stack([torch.randperm(hw * hw, generator=gen)[:n]
+                         for _ in range(b)])
+    pos = torch.stack([cells % hw, cells // hw], -1).float().to(dev)
+    pos, mean, _, _, _ = space_filling_cluster(pos, cs, hw, hw)
+    return pos.contiguous(), knn(pos, mean, nnc).contiguous()
+
+
+def stage_geometry(gen, b, n, dev):
+    """An AFF-Mini stage's positions and nearest clusters: stage 1 on the
+    grid (host constants, batch-broadcast), later stages clustered."""
+    from ml_autofocusformermod_torch.ops.sfc import grid_tensors
+
+    if n == 3136:
+        g_pos, _, g_ncc = grid_tensors(56, 56, CS, NNC, dev)
+        return g_pos[None].expand(b, n, 2), g_ncc[None].expand(b, n, NNC)
+    return clustered_stage(gen, b, n, 56, dev)
+
+
+def attention_inputs(gen, b, n, h, c, dev, dtype):
+    """The attention kernels' inputs at one stage, by name."""
+    import torch
+
+    pos, ncc = stage_geometry(gen, b, n, dev)
+    c_ = c // h
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    return dict(
+        q=rnd(b, n, c, scale=c_**-0.5).to(dtype),
+        kv=rnd(b, n, 2 * c).to(dtype), ncc=ncc, pos=pos,
+        pe_kernel=rnd(5, h, scale=0.1), pe_bias=rnd(h, scale=0.1),
+        blank_k=rnd(c_, h, scale=0.5), blank_v=rnd(h, c_, scale=0.5),
+    )
+
+
+def merge_inputs(gen, b, n, n_, c, dev, dtype, cs=CS, nnc=NNC,
+                 geometry="stage", hw=56):
+    """(weights, feat, ncc) of one merge. "stage": the centres' rows of an
+    AFF-Mini stage's nearest clusters (stage 1 on the grid); "clustered":
+    the same on an hw x hw canvas with cluster size cs; "random": each
+    row's nnc distinct clusters drawn with odds falling as (id + 1)^-2,
+    so some clusters are named by many centres and some by none;
+    "repeats": drawn with replacement, so rows name clusters twice."""
+    import torch
+
+    k = -(-n // cs)
+    if geometry in ("stage", "clustered"):
+        if geometry == "stage":
+            _, ncc = stage_geometry(gen, b, n, dev)
+        else:
+            _, ncc = clustered_stage(gen, b, n, hw, dev, cs, nnc)
+        centres = torch.stack([torch.randperm(n, generator=gen)[:n_]
+                               for _ in range(b)]).to(dev)
+        sel = torch.gather(ncc, 1, centres[..., None].expand(b, n_, nnc))
+    elif geometry == "random":
+        odds = torch.arange(1, k + 1, dtype=torch.float64) ** -2
+        sel = torch.multinomial(odds.expand(b * n_, k), nnc,
+                                generator=gen).reshape(b, n_, nnc)
+    else:
+        sel = torch.randint(0, k, (b, n_, nnc), generator=gen)
+    sel = sel.to(dev, torch.int32).contiguous()
+    w = torch.randn(b, n_, nnc * cs, IC, generator=gen).to(dev, dtype)
+    feat = torch.randn(b, n, c, generator=gen).to(dev, dtype)
+    return w, feat, sel
+
+
+def time_attention(out, gen, dev, dtype):
+    import torch
+
+    from ml_autofocusformermod_torch.ops.cluster_attention import (
+        cluster_attention_backward, fused_cluster_attention, tile_metadata)
+
+    names = ["q", "kv", "ncc", "pos", "pe_kernel", "pe_bias", "blank_k",
+             "blank_v"]
+    for label, n, h, c, _ in ATTN_STAGES:
+        a = attention_inputs(gen, B, n, h, c, dev, dtype)
+        args = [a[k] for k in names]
+        g = torch.randn(B, n, c, generator=gen).to(dev, dtype)
+        meta = tile_metadata(a["ncc"])
+        fns = {"fwd": lambda: fused_cluster_attention(*args, h, CS, R,
+                                                      meta=meta),
+               "bwd": lambda: cluster_attention_backward(*args, g, h, CS, R,
+                                                         meta=meta)}
+        for d, fn in fns.items():
+            out[f"{label}_{d}_ms"] = time_ms(fn)
+            out[f"{label}_{d}_device_ms"] = device_ms(fn)
+
+
+def time_merge(out, gen, dev, dtype):
+    import torch
+
+    from ml_autofocusformermod_torch.ops import cluster_merge as cm
+
+    for label, n, n_, c in MERGES:
+        w, f, ncc = merge_inputs(gen, B, n, n_, c, dev, dtype)
+        g = torch.randn(B, n_, IC, c, generator=gen).to(dev, dtype)
+        fns = {"fwd": lambda: cm.fused_cluster_merge(w, f, ncc, CS),
+               "bwd": lambda: cm.cluster_merge_backward(w, f, ncc, CS, g)}
+        if hasattr(cm, "merge_inverse_index"):
+            fns["index"] = lambda: cm.merge_inverse_index(ncc, n, CS)
+        for d, fn in fns.items():
+            out[f"{label}_{d}_ms"] = time_ms(fn)
+            out[f"{label}_{d}_device_ms"] = device_ms(fn)
+
+
+def main() -> int:
+    sys.path.insert(0, os.getcwd())  # the checkout to time, when run as a file
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("label", nargs="?", default=".")
+    ap.add_argument("--merge", action="store_true",
+                    help="time the merge kernels, not the attention's")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
+    args = ap.parse_args()
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    out = {"label": args.label, "dtype": args.dtype, "b": B}
+    timer = time_merge if args.merge else time_attention
+    timer(out, gen, dev, getattr(torch, args.dtype))
+    out["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -15,7 +15,8 @@ kernels against their plain versions (card).
 * guards for the two faults the training slice repaired: gradients that
   stop at the fused ops, and BatchNorm's unbiased running variance.
 The tests marked ``cuda`` hold the two backward kernels against their plain
-versions and skip without a GPU.
+versions, the merge backward at the merge stress shapes too, check that
+the merge backward is bitwise reproducible, and skip without a GPU.
 """
 
 import jax
@@ -53,7 +54,9 @@ from ml_autofocusformermod_tpu.train.losses import (
     smooth_one_hot as jax_smooth_one_hot,
     soft_target_cross_entropy as jax_soft_target_ce,
 )
-from test_torch_kernels import STRESS, _stress_case
+from test_torch_kernels import (
+    MERGE_STRESS, STRESS, _merge_stress_case, _stress_case,
+)
 
 torch.set_num_threads(1)
 ATOL, RTOL = 1e-5, 1e-4  # fp32 envelope of tests/test_pallas_kernel.py:453
@@ -465,3 +468,47 @@ def test_merge_backward_kernel_matches_plain_on_card(cuda_device, dtype):
     for x, y in zip(got, want):
         err = (x.float() - y).abs().max().item()
         assert err <= tol * y.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MERGE_STRESS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_merge_backward_kernel_stress_shapes_on_card(cuda_device, dtype,
+                                                     name):
+    """The merge stress shapes of ``tests/test_torch_kernels.py`` (m = 760
+    with repeats, random ncc, AFF-Base-384's first merge, c = 512, b = 1);
+    dw and dfeat against the plain backward in f64."""
+    a = _merge_case_of(*_merge_stress_case(name, 14), cuda_device)
+    w, f, g = (a[k].to(dtype) for k in ("weights", "feat", "g"))
+    got = cluster_merge_backward(w, f, a["ncc"], a["cs"], g)
+    want = cluster_merge_backward_reference(
+        w.double(), f.double(), a["ncc"], a["cs"], g.double())
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for x, y in zip(got, want):
+        assert x.dtype == dtype
+        err = (x.double() - y).abs().max().item()
+        assert err <= tol * y.abs().max().item()
+
+
+def _merge_case_of(weights, feat, ncc, g, cs, dev):
+    t = dict(weights=weights, feat=feat, ncc=ncc, g=g)
+    out = {k: torch.from_numpy(v).to(dev) for k, v in t.items()}
+    out["cs"] = cs
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_merge_backward_is_bitwise_reproducible_on_card(cuda_device, dtype):
+    """The merge backward sums in an order fixed by the inverse index, with
+    no atomics: two runs on the same inputs give the same bits (ROADMAP
+    C4). AFF-Mini's first merge at b = 8."""
+    a = _merge_case_of(*_merge_stress_case("merge_b1", 15), cuda_device)
+    w, f, g = (a[k].to(dtype).expand(8, *a[k].shape[1:]).contiguous()
+               for k in ("weights", "feat", "g"))
+    ncc = a["ncc"].expand(8, *a["ncc"].shape[1:]).contiguous()
+    first = cluster_merge_backward(w, f, ncc, a["cs"], g)
+    second = cluster_merge_backward(w, f, ncc, a["cs"], g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))

@@ -263,3 +263,60 @@ def test_merge_kernel_matches_plain_on_card(cuda_device, dtype):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     err = (out.float() - ref).abs().max().item()
     assert err <= tol * ref.abs().max().item()
+
+
+def _merge_stress_case(name, seed):
+    """The merge stress shapes of ``chip_smoke.py`` (b = 2): m = 760 (cs =
+    40, nnc = 19) with clusters listed twice, which the one-thread-row
+    forward refused (shared memory over 48 KB); random ncc, where some
+    clusters are named by many centres and some by none; AFF-Base-384's
+    first merge (n = 9216, cs = 24), whose f32 image does not fit in
+    shared memory; AFF-Base's third merge (c = 512, a padded last
+    cluster); and AFF-Mini's first merge at b = 1. Returns (weights, feat,
+    ncc, g, cs) as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    b, n, n_, c, cs, nnc = {
+        "merge_m760_repeats": (2, 990, 247, 32, 40, 19),
+        "merge_random_ncc": (2, 784, 196, 128, 8, 6),
+        "merge_aff_base384": (2, 9216, 2304, 128, 24, 6),
+        "merge_base_c512": (2, 196, 49, 512, 8, 6),
+        "merge_b1": (1, 3136, 784, 32, 8, 6),
+    }[name]
+    k = -(-n // cs)
+    if name == "merge_m760_repeats":  # drawn with replacement
+        ncc = rng.integers(0, k, size=(b, n_, nnc))
+    elif name == "merge_random_ncc":  # odds falling as (id + 1)^-2
+        odds = np.arange(1, k + 1, dtype=np.float64) ** -2
+        ncc = np.stack([rng.choice(k, nnc, replace=False, p=odds / odds.sum())
+                        for _ in range(b * n_)]).reshape(b, n_, nnc)
+    else:
+        ncc = np.argsort(rng.uniform(size=(b, n_, k)), -1)[..., :nnc]
+    weights = rng.standard_normal((b, n_, nnc * cs, 4)).astype(np.float32)
+    feat = rng.standard_normal((b, n, c)).astype(np.float32)
+    g = rng.standard_normal((b, n_, 4, c)).astype(np.float32)
+    return weights, feat, ncc.astype(np.int32), g, cs
+
+
+MERGE_STRESS = ["merge_m760_repeats", "merge_random_ncc", "merge_aff_base384",
+                "merge_base_c512", "merge_b1"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MERGE_STRESS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_merge_kernel_stress_shapes_on_card(cuda_device, dtype, name):
+    """Every merge stress shape runs and agrees with the plain version; m
+    = 760 was refused by the forward before its redesign (ROADMAP C3)."""
+    weights, feat, ncc, _, cs = _merge_stress_case(name, 13)
+    w = torch.from_numpy(weights).to(cuda_device, dtype)
+    f = torch.from_numpy(feat).to(cuda_device, dtype)
+    nc = torch.from_numpy(ncc).to(cuda_device)
+    before = fused_cluster_merge.launches
+    out = fused_cluster_merge(w, f, nc, cs)
+    ref = cluster_merge_reference(w.float(), f.float(), nc, cs)
+    torch.cuda.synchronize()
+    assert fused_cluster_merge.launches == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    err = (out.float() - ref).abs().max().item()
+    assert out.dtype == dtype
+    assert err <= tol * ref.abs().max().item()
