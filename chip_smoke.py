@@ -43,6 +43,11 @@ Phases, one JSON line each:
    of the index kernel (``INDEX_STRESS``), and
    ``merge_bwd_deterministic``: two backwards of merge 1 at b = 128 bf16
    give the same bits;
+   then the attention forward at the shapes of a real UD-Mini 224 forward
+   (``maskfiner_ud_mini_n193/n625/n1921``: its q, kv, positions, nearest
+   clusters and tile metadata captured from the model, clamp_width 1023),
+   b = 128 bf16 with the same times and bound, and b = 2 fp32, each with
+   its tile unions (``stress_unions``);
 5. model_check: AFF-Mini 224 built through ``build_model`` and the port's
    ``aff_mini.yaml`` from a fixed seed, fp32, b = 2: the GPU forward (CUDA
    kernels, TF32 off) against the CPU forward (plain versions) on the same
@@ -60,15 +65,28 @@ Phases, one JSON line each:
    reduce in another order); 10 + 10 attention and 3 + 3 merge launches
    (forward + backward) and 3 merge inverse indexes (kernel launches) per
    step;
+   maskfiner_model_check: OT and UD-Mini 224 at full width, the same
+   way (fp32, b = 2, GPU against CPU on the same weights and upsampling
+   masks): logits within 1e-3 and the same argmax, every level's nearest
+   clusters equal on both devices, 25 (OT) and 16 (UD-Mini) attention
+   launches per forward, no other kernel, one tile metadata per local
+   level (3 and 5);
 7. eval / throughput: the entry point ``ml_autofocusformermod_torch.main``
    with ``--eval`` over a few synthetic batches, then ``--throughput`` at
    b = 128 in bf16 (50 warmup + 30 timed forwards);
 8. train: the entry point training AFF-Mini 224 in bf16 at b = 128 for one
    synthetic epoch (4 steps), one checkpoint and one validation; training
-   images/s beside the card's name and power limit.
+   images/s beside the card's name and power limit;
+9. the MaskFiner path: ``main --eval`` on UD-Mini 224 (b = 32, bf16),
+   then ``--throughput`` at b = 128 bf16 of UD-Mini and of OT, images/s
+   beside the card's name and power limit; the attention forward is the
+   only kernel launched (16 and 25 per forward).
 
 The launch counters are zeroed just before each run of the entry point
-and read just after.
+and read just after. The ``kernels`` line gives each kernel's launches in
+the AFF-Mini training run and, under ``launches_by_path``, in the UD-Mini
+throughput run too, and for the attention forward its times at the
+UD-Mini shapes (``maskfiner_ud_mini``).
 
 Then the ``kernels`` line, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
@@ -84,11 +102,13 @@ import subprocess
 import sys
 import time
 
+from ml_autofocusformermod_torch.config import load_config
+
 # the AFF-Mini shapes, the timers and the input builders, shared with the
 # A/B timing tool
 from ml_autofocusformermod_torch.time_kernels import (
-    ATTN_STAGES, CS, IC, MERGES, attention_inputs, clustered_stage,
-    device_ms, merge_inputs, time_ms,
+    ATTN_ARGS, ATTN_STAGES, CS, IC, MERGES, attention_inputs,
+    captured_attention, clustered_stage, device_ms, merge_inputs, time_ms,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -130,6 +150,13 @@ PREV_MS = {
     ("cluster_merge_bwd", "merge1"): 1.946,
     ("cluster_merge_bwd", "merge2"): 0.664,
     ("cluster_merge_bwd", "merge3"): 0.241,
+}
+# the MaskFiner presets the script runs: name -> (file of configs/,
+# attention launches and tile metadata per forward: one metadata per local
+# MixResBasicLayer)
+MASKFINER = {
+    "maskfiner_ud_mini": ("maskfiner_up_down_mini.yaml", 16, 5),
+    "maskfiner_ot": ("maskfiner_oracle_teacher.yaml", 25, 3),
 }
 # attention stress shapes, b = 2: (name, n, heads, c, cs, nnc, geometry,
 # rel_width, clamp_width). "clustered": positions on a 56 x 56 canvas,
@@ -609,14 +636,15 @@ def phase_merge(torch):
     return rows
 
 
-def mini_config(opts):
+def port_config(preset, opts):
+    return load_config(preset_path(preset), opts=opts)
+
+
+def preset_path(preset):
     import os
 
-    from ml_autofocusformermod_torch.config import load_config
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    return load_config(os.path.join(here, "ml_autofocusformermod_torch",
-                                    "configs", "aff_mini.yaml"), opts=opts)
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "ml_autofocusformermod_torch", "configs", preset)
 
 
 def phase_model(torch):
@@ -630,7 +658,7 @@ def phase_model(torch):
         fused_cluster_merge, merge_inverse_index,
     )
 
-    cfg = mini_config(["TPU.COMPUTE_DTYPE", "float32"])
+    cfg = port_config("aff_mini.yaml", ["TPU.COMPUTE_DTYPE", "float32"])
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (2, 3, 224, 224)).astype(np.float32))
     tf32 = torch.backends.cudnn.allow_tf32
@@ -666,6 +694,121 @@ def phase_model(torch):
     if not ok:
         raise AssertionError("AFF-Mini GPU forward disagrees with the CPU "
                              "plain path or launched the wrong kernel count")
+
+
+def phase_maskfiner_kernels(torch):
+    """The attention forward at the shapes of a real UD-Mini 224 forward:
+    its inputs captured from the model (random weights, synthetic images),
+    b = 128 bf16 (check and times) and b = 2 fp32 (check)."""
+    from ml_autofocusformermod_torch.ops.cluster_attention import (
+        cluster_attention_reference, fused_cluster_attention, tile_metadata,
+    )
+
+    dev = torch.device("cuda")
+    preset = MASKFINER["maskfiner_ud_mini"][0]
+    rows = []
+    for b, dtype_name in ((128, "bfloat16"), (2, "float32")):
+        for row in captured_attention(preset, b, dtype_name, dev):
+            a = row["args"]
+            args = [a[k] for k in ATTN_ARGS]
+            geo = (row["heads"], row["cs"], row["rel_width"], row["clamp"])
+            meta = row["meta"]
+            out = fused_cluster_attention(*args, *geo, meta=meta)
+            ref = cluster_attention_reference(*args, *geo)  # f32 inside
+            torch.cuda.synchronize()
+            label = f"maskfiner_ud_mini_{row['label']}_b{b}"
+            err = check(label, dtype_name, out, ref)
+            count = meta.ucount.float()
+            emit({"phase": "stress_unions", "shape": label,
+                  "union_clusters_max": int(count.max().item()),
+                  "union_clusters_mean": count.mean().item()})
+            if b != 128:
+                continue
+            ms = time_ms(lambda: fused_cluster_attention(*args, *geo,
+                                                         meta=meta))
+            dev_ms = device_ms(lambda: fused_cluster_attention(
+                *args, *geo, meta=meta))
+            meta_ms = time_ms(lambda: tile_metadata(a["ncc"]))
+            plain = time_ms(lambda: cluster_attention_reference(*args, *geo),
+                            iters=5, warmup=1)
+            moved, flops = attn_work(torch, a, row["heads"], row["cs"])
+            bms, by = bound_ms(moved, flops, "bfloat16")
+            rows.append(dict(
+                model="maskfiner_ud_mini", shape=row["label"], b=b,
+                n=row["n"], heads=row["heads"], c=row["c"],
+                clamp_width=row["clamp"], per_pass=row["per_pass"], ms=ms,
+                device_ms=dev_ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                bytes=moved, flops=flops, max_abs_err=err))
+            emit({"phase": "kernel_time", "kernel": "cluster_attention_fwd",
+                  **rows[-1], "tile_metadata_ms": meta_ms})
+    return rows
+
+
+def phase_maskfiner_model(torch):
+    """OT and UD-Mini 224 at full width, fp32, b = 2, built through
+    ``build_model`` from a fixed seed: the GPU forward (CUDA kernels, TF32
+    off) against the CPU forward (plain versions), the same masks on both;
+    logits, every level's nearest clusters, the launches."""
+    import numpy as np
+
+    from ml_autofocusformermod_torch.models import mixres_neighbour
+    from ml_autofocusformermod_torch.models.build import build_model
+    from ml_autofocusformermod_torch.ops.cluster_attention import (
+        tile_metadata,
+    )
+
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 3, 224, 224)).astype(np.float32))
+    real_knn = mixres_neighbour.knn
+    for name, (preset, attn_per_fwd, meta_per_fwd) in MASKFINER.items():
+        cfg = port_config(preset, ["TPU.COMPUTE_DTYPE", "float32"])
+        nccs = {"cuda": [], "cpu": []}
+
+        def forward(device):
+            def recording_knn(*args, **kw):
+                out = real_knn(*args, **kw)
+                nccs[device].append(out.cpu())
+                return out
+
+            mixres_neighbour.knn = recording_knn
+            try:
+                with torch.no_grad():
+                    return build_model(cfg, device, seed=0)(
+                        x.to(device)).float().cpu()
+            finally:
+                mixres_neighbour.knn = real_knn
+
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False  # the patch-embed convs
+        try:
+            zero_counters()
+            tile_metadata.calls = 0
+            out = forward("cuda")
+            torch.cuda.synchronize()
+            launches = read_counters()
+            meta_calls = tile_metadata.calls
+            ref = forward("cpu")
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        err = (out - ref).abs().max().item()
+        same_argmax = bool((out.argmax(-1) == ref.argmax(-1)).all())
+        same_ncc = (len(nccs["cuda"]) == len(nccs["cpu"]) == meta_per_fwd
+                    and all(torch.equal(g, c) for g, c in
+                            zip(nccs["cuda"], nccs["cpu"])))
+        want = dict.fromkeys(counters(), 0)
+        want["cluster_attention_fwd"] = attn_per_fwd
+        ok = (err <= 1e-3 and same_argmax and same_ncc and launches == want
+              and meta_calls == meta_per_fwd
+              and bool(out.isfinite().all()) and out.shape == (2, 1000))
+        emit({"phase": "maskfiner_model_check", "model": name,
+              "dtype": "float32", "b": 2, "max_abs_err_vs_cpu": err,
+              "same_argmax": same_argmax, "same_ncc": same_ncc,
+              "ncc_shapes": [list(t.shape) for t in nccs["cuda"]],
+              "launches_per_forward": launches,
+              "tile_metadata_calls": meta_calls, "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name} GPU forward disagrees with the CPU "
+                                 "plain path or launched the wrong kernels")
 
 
 def counters():
@@ -704,7 +847,7 @@ def phase_train_check(torch):
         create_train_state, make_train_step,
     )
 
-    cfg = mini_config(["TPU.COMPUTE_DTYPE", "float32"])
+    cfg = port_config("aff_mini.yaml", ["TPU.COMPUTE_DTYPE", "float32"])
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal((2, 3, 224, 224)).astype(
         np.float32))
@@ -819,6 +962,46 @@ def phase_entry(torch, smi):
     return launches
 
 
+def phase_maskfiner_entry(torch, smi):
+    """``main --eval`` on UD-Mini 224 (b = 32, bf16) over the synthetic
+    set, then ``--throughput`` at b = 128 bf16 of UD-Mini (the MaskFiner
+    main path) and of OT. Returns the UD-Mini throughput run's launches."""
+    ud, ud_attn, _ = MASKFINER["maskfiner_ud_mini"]
+    common = ["--device", "cuda", "--data-path", "no_dataset"]
+
+    def expect_mf(attn_per_fwd, forwards):
+        want = dict.fromkeys(counters(), 0)
+        want["cluster_attention_fwd"] = attn_per_fwd * forwards
+        return want
+
+    result, secs, launches = run_main(
+        torch, ["--cfg", preset_path(ud), "--eval", "--batch-size", "32"]
+        + common)
+    ok = (launches == expect_mf(ud_attn, 50 + 30 + 4)
+          and all(math.isfinite(v) for v in result.values()))
+    emit({"phase": "eval", "model": "maskfiner_ud_mini", "batch": 32,
+          "dtype": "bfloat16", **result, "seconds": secs,
+          "launches": launches, "ok": ok})
+    if not ok:
+        raise AssertionError(f"UD-Mini --eval run: launches {launches}")
+    path_launches = {}
+    for name in ("maskfiner_ud_mini", "maskfiner_ot"):
+        preset, attn, _ = MASKFINER[name]
+        result, secs, launches = run_main(
+            torch, ["--cfg", preset_path(preset), "--throughput",
+                    "--batch-size", "128"] + common)
+        ok = (launches == expect_mf(attn, 50 + 30)
+              and result["throughput_img_s"] > 0)
+        emit({"phase": "throughput", "model": name, "batch": 128,
+              "dtype": "bfloat16", "img_per_s": result["throughput_img_s"],
+              "card": smi, "seconds": secs, "launches": launches, "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name} --throughput run: launches "
+                                 f"{launches}")
+        path_launches[name] = launches
+    return path_launches["maskfiner_ud_mini"]
+
+
 def phase_train(torch, smi):
     """``main`` training AFF-Mini 224 bf16 b128 for one synthetic epoch."""
     import os
@@ -858,31 +1041,47 @@ def phase_train(torch, smi):
     return launches
 
 
-def kernels_line(rows, launches):
+def kernels_line(rows, launches, mf_rows, mf_launches):
     """One entry per CUDA kernel: launches in the training run of the entry
-    point (the path that runs them all), the worst check error, and per
-    AFF-Mini b128 bf16 pass (a forward for the forward kernels, a backward
-    for the backward kernels) the sum of the per-call times over the
-    pass's launches."""
+    point (the AFF path, which runs them all), the worst check error, and
+    per AFF-Mini b128 bf16 pass (a forward for the forward kernels, a
+    backward for the backward kernels) the sum of the per-call times over
+    the pass's launches; then the same for the MaskFiner path (UD-Mini
+    b128 bf16 ``--throughput``, which runs the attention forward only)
+    under ``maskfiner_ud_mini``."""
     def total(rs, key):
         return sum(r[key] * r["per_pass"] for r in rs)
+
+    def bound_by(rs):
+        return ("bytes" if all(r["bound_by"] == "bytes" for r in rs)
+                else "operations")
 
     out = []
     for name, (src, replaces, also) in KERNELS.items():
         rs = rows[name]
-        out.append({
+        mf = mf_rows if name == "cluster_attention_fwd" else []
+        entry = {
             "name": name, "route": "cuda", "source": CSRC + src,
             "replaces": replaces, "also_replaces": also,
             "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "max_abs_err": max(r["max_abs_err"] for r in rs + mf),
             "ms": total(rs, "ms"), "device_ms": total(rs, "device_ms"),
             "plain_ms": total(rs, "plain_ms"),
-            "bound_ms": total(rs, "bound_ms"),
-            "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rs)
-                         else "operations"),
+            "bound_ms": total(rs, "bound_ms"), "bound_by": bound_by(rs),
             "library_ms": None,  # no single PyTorch call computes it
             "per_shape": rs,
-        })
+            "launches_by_path": {"aff_mini_train": launches[name],
+                                 "maskfiner_ud_mini_throughput":
+                                     mf_launches[name]},
+        }
+        if mf:
+            entry["maskfiner_ud_mini"] = {
+                "launches": mf_launches[name], "ms": total(mf, "ms"),
+                "device_ms": total(mf, "device_ms"),
+                "plain_ms": total(mf, "plain_ms"),
+                "bound_ms": total(mf, "bound_ms"), "bound_by": bound_by(mf),
+                "library_ms": None, "per_shape": mf}
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -896,11 +1095,14 @@ def main() -> int:
     rows = {"cluster_attention_fwd": fwd["attention"],
             "cluster_attention_bwd": bwd["attention"],
             **phase_merge(torch)}
+    mf_rows = phase_maskfiner_kernels(torch)
     phase_model(torch)
     phase_train_check(torch)
+    phase_maskfiner_model(torch)
     phase_entry(torch, smi)
     launches = phase_train(torch, smi)
-    emit(kernels_line(rows, launches))
+    mf_launches = phase_maskfiner_entry(torch, smi)
+    emit(kernels_line(rows, launches, mf_rows, mf_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -65,7 +65,11 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
     """``{'params': ..., 'batch_stats': ...}`` (numpy leaves) -> state_dict.
 
     Each BatchNorm also gets ``num_batches_tracked = 0``, so the result
-    loads with a strict ``load_state_dict``.
+    loads with a strict ``load_state_dict``. Raises if two flax leaves map
+    to one torch key. Bare parameters (``blank_k``, ``rel_pos_emb``,
+    ``register_tokens``, ``gamma1``, ...) keep their name and layout;
+    depthwise conv kernels (H, W, 1, C) become (C, 1, H, W) like every
+    conv.
     """
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
@@ -77,6 +81,8 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
                 elif arr.ndim == 2:  # linear (in, out) -> (out, in)
                     arr = arr.T
             key = torch_key(path)
+            if key in out:
+                raise ValueError(f"two flax leaves map to {key}")
             out[key] = torch.from_numpy(np.array(arr))  # an owned, writable copy
             if collection == "batch_stats" and path[-1] == "mean":
                 out[key[: -len("running_mean")] + "num_batches_tracked"] = (

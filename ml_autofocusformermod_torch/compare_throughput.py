@@ -2,11 +2,12 @@
 on one card.
 
     python -m ml_autofocusformermod_torch.compare_throughput OTHER_DIR \
-        [--rounds 2] [--batch-size 128]
+        [--rounds 2] [--batch-size 128] [--cfg PRESET]
 
 OTHER_DIR is a checkout of another commit (for example the parent, unpacked
-with ``git archive``). Each round runs ``main --throughput`` (AFF-Mini 224,
-bf16: 50 warm-up and 30 timed forwards) as a process of its own, in the
+with ``git archive``). Each round runs ``main --throughput`` (the preset
+``--cfg`` of ``configs/``, by default AFF-Mini 224; bf16: 50 warm-up and 30
+timed forwards) as a process of its own, in the
 order other, this, this, other, so that both checkouts see the same card
 and host. Prints one JSON line per run, then one with each side's img/s
 and the ratio of their medians, then the card's ``nvidia-smi`` name and
@@ -25,9 +26,9 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run(root: str, batch: int) -> float:
+def run(root: str, batch: int, preset: str) -> float:
     cfg = os.path.join(root, "ml_autofocusformermod_torch", "configs",
-                       "aff_mini.yaml")
+                       preset)
     out = subprocess.run(
         [sys.executable, "-m", "ml_autofocusformermod_torch.main", "--cfg",
          cfg, "--device", "cuda", "--data-path", "no_dataset",
@@ -44,12 +45,15 @@ def main(argv=None) -> int:
     parser.add_argument("other")
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--batch-size", type=int, default=128)
+    parser.add_argument("--cfg", default="aff_mini.yaml",
+                        help="a preset of configs/ (both checkouts need it)")
     args = parser.parse_args(argv)
     other = os.path.abspath(args.other)
     sides = {"other": [], "this": []}
     for r in range(args.rounds):
         for side in ("other", "this", "this", "other"):
-            fps = run(other if side == "other" else HERE, args.batch_size)
+            fps = run(other if side == "other" else HERE, args.batch_size,
+                      os.path.basename(args.cfg))
             sides[side].append(fps)
             print(json.dumps({"round": r, "side": side, "img_per_s": fps}),
                   flush=True)

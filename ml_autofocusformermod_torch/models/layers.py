@@ -126,16 +126,21 @@ class ClusterAttention(nn.Module):
     ``attn_drop`` drops attention probabilities in training mode: in the
     global mode with ``nn.Dropout``; in the local mode the fused kernels do
     not port it yet and raise (ROADMAP.md queue B item 7).
+
+    ``clamp_width`` (MixRes: the rel-pos table width, 0 for AFF) clamps the
+    local mode's relative coordinates inside the kernel; in the global mode
+    the caller's ``pe_feat`` carries the clamp.
     """
 
     def __init__(self, dim, num_heads, rel_pos_width,
                  compute_dtype=torch.float32, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0):
+                 proj_drop: float = 0.0, clamp_width: int = 0):
         super().__init__()
         self.num_heads = num_heads
         self.attn_drop = nn.Dropout(attn_drop)
         self.proj_drop = nn.Dropout(proj_drop)
         self.rel_pos_width = rel_pos_width
+        self.clamp_width = clamp_width
         self.compute_dtype = compute_dtype
         self.q = Linear(dim, dim, compute_dtype)
         self.kv = Linear(dim, 2 * dim, compute_dtype)
@@ -157,7 +162,7 @@ class ClusterAttention(nn.Module):
                 q.contiguous(), kv.contiguous(), nearest_cluster, pos,
                 self.pos_embed.weight.t(), self.pos_embed.bias,
                 self.blank_k.reshape(h, c_).t(), self.blank_v.reshape(h, c_),
-                h, cluster_size, self.rel_pos_width,
+                h, cluster_size, self.rel_pos_width, self.clamp_width,
                 drop_rate=self.attn_drop.p if self.training else 0.0,
                 meta=tile_meta,
             )
@@ -186,12 +191,14 @@ class ClusterTransformerBlock(nn.Module):
 
     def __init__(self, dim, num_heads, mlp_ratio, layer_scale, rel_pos_width,
                  compute_dtype=torch.float32, drop: float = 0.0,
-                 attn_drop: float = 0.0, drop_path: float = 0.0):
+                 attn_drop: float = 0.0, drop_path: float = 0.0,
+                 clamp_width: int = 0):
         super().__init__()
         self.norm1 = LayerNormFp32(dim)
         self.attn = ClusterAttention(dim, num_heads, rel_pos_width,
                                      compute_dtype=compute_dtype,
-                                     attn_drop=attn_drop, proj_drop=drop)
+                                     attn_drop=attn_drop, proj_drop=drop,
+                                     clamp_width=clamp_width)
         self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNormFp32(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, compute_dtype, drop)

@@ -1,4 +1,5 @@
-"""Device-time breakdown of the AFF forward, or of a train step, on one GPU.
+"""Device-time breakdown of a model's forward (AFF, or a MaskFiner preset
+given by ``--cfg``), or of a train step, on one GPU.
 
     python -m ml_autofocusformermod_torch.profile_forward
         [--cfg FILE] [--batch-size 128] [--iters 5] [--train]
@@ -95,7 +96,7 @@ def _train_split(config, state, images, labels, steps: int = 5) -> dict:
 
 def main(argv=None) -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
-    parser = argparse.ArgumentParser("AFF device-time breakdown")
+    parser = argparse.ArgumentParser("device-time breakdown of a forward")
     parser.add_argument("--cfg", default=os.path.join(here, "configs",
                                                       "aff_mini.yaml"))
     parser.add_argument("--batch-size", type=int, default=128)
@@ -172,6 +173,8 @@ def main(argv=None) -> dict:
         f"device_ops_per_{what}": launches / n,
         f"groups_ms_per_{what}": {k: v / n / 1e3 for k, v in
                                   sorted(groups.items(), key=lambda kv: -kv[1])},
+        "cluster_attention_fwd_share_of_busy":
+            groups.get("cluster_attention_fwd", 0.0) / busy_us,
     }
     if split is not None:
         result["step_split_ms_synchronised"] = split

@@ -3,12 +3,15 @@ the timers and inputs that ``chip_smoke.py`` uses for its kernel_time
 lines.
 
     python3 -m ml_autofocusformermod_torch.time_kernels [--merge]
-        [--dtype bfloat16|float32] [LABEL]
+        [--cfg PRESET] [--dtype bfloat16|float32] [LABEL]
 
 times this checkout: the attention kernels at stages 1-3 (each with its
 stage's tile metadata made beforehand, as the model calls them), or with
 ``--merge`` the merge kernels at merges 1-3 (the backward makes its
-inverse index inside, as the model calls it). Run as a file from the root
+inverse index inside, as the model calls it), or with ``--cfg`` and a
+MaskFiner preset (``maskfiner_up_down_mini.yaml``, ...) the attention
+forward at each token count of that model's forward, on the inputs a
+forward of the model (random weights, synthetic images) gave the kernel. Run as a file from the root
 of another checkout, ``python3 <this checkout>/ml_autofocusformermod_torch/
 time_kernels.py [--merge] LABEL``, it times that checkout's kernels, so
 that several variants (or the parent and the change) can be timed on one
@@ -154,17 +157,76 @@ def merge_inputs(gen, b, n, n_, c, dev, dtype, cs=CS, nnc=NNC,
     return w, feat, sel
 
 
+ATTN_ARGS = ["q", "kv", "ncc", "pos", "pe_kernel", "pe_bias", "blank_k",
+             "blank_v"]
+
+
+def captured_attention(preset, b, dtype_name, dev, seed=0):
+    """The attention kernel's inputs in a forward of the model of
+    ``preset`` (a file of ``configs/``) built from ``seed`` on ``b``
+    synthetic validation images: per distinct token count n, in the order
+    of first call, a dict with ``label`` (``n<n>``), ``n``, ``heads``,
+    ``c``, ``cs``, ``rel_width``, ``clamp``, ``per_pass`` (the calls at
+    this n in one forward), ``args`` (the eight inputs by name, as the
+    kernel gets them) and ``meta`` (the stage's tile metadata)."""
+    import torch
+
+    from ml_autofocusformermod_torch.config import load_config
+    from ml_autofocusformermod_torch.data.synthetic import (
+        build_val_dataset, iterate_batches)
+    from ml_autofocusformermod_torch.models import layers
+    from ml_autofocusformermod_torch.models.build import build_model
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(here, "configs", preset), opts=[
+        "TPU.COMPUTE_DTYPE", dtype_name, "DATA.DATA_PATH", "no_dataset"])
+    model = build_model(cfg, dev, seed=seed)
+    images, _ = next(iterate_batches(build_val_dataset(cfg), b))
+    seen = {}
+    real = layers.fused_cluster_attention
+
+    def capture(*args, meta=None, **kw):
+        q, h, cs, rel_width, clamp = args[0], *args[8:12]
+        n = q.shape[1]
+        if n not in seen:
+            inputs = dict(zip(ATTN_ARGS, (t.detach().clone()
+                                          for t in args[:8])))
+            seen[n] = dict(label=f"n{n}", n=n, heads=h, c=q.shape[2],
+                           cs=cs, rel_width=rel_width, clamp=clamp,
+                           per_pass=0, args=inputs, meta=meta)
+        seen[n]["per_pass"] += 1
+        return real(*args, meta=meta, **kw)
+
+    layers.fused_cluster_attention = capture
+    try:
+        with torch.no_grad():
+            model(images.to(dev))
+    finally:
+        layers.fused_cluster_attention = real
+    return list(seen.values())
+
+
+def time_maskfiner(out, preset, dev, dtype):
+    from ml_autofocusformermod_torch.ops.cluster_attention import (
+        fused_cluster_attention)
+
+    for row in captured_attention(preset, B, str(dtype).split(".")[1], dev):
+        args = [row["args"][k] for k in ATTN_ARGS]
+        geo = (row["heads"], row["cs"], row["rel_width"], row["clamp"])
+        fn = lambda: fused_cluster_attention(*args, *geo, meta=row["meta"])
+        out[f"{row['label']}_fwd_ms"] = time_ms(fn)
+        out[f"{row['label']}_fwd_device_ms"] = device_ms(fn)
+
+
 def time_attention(out, gen, dev, dtype):
     import torch
 
     from ml_autofocusformermod_torch.ops.cluster_attention import (
         cluster_attention_backward, fused_cluster_attention, tile_metadata)
 
-    names = ["q", "kv", "ncc", "pos", "pe_kernel", "pe_bias", "blank_k",
-             "blank_v"]
     for label, n, h, c, _ in ATTN_STAGES:
         a = attention_inputs(gen, B, n, h, c, dev, dtype)
-        args = [a[k] for k in names]
+        args = [a[k] for k in ATTN_ARGS]
         g = torch.randn(B, n, c, generator=gen).to(dev, dtype)
         meta = tile_metadata(a["ncc"])
         fns = {"fwd": lambda: fused_cluster_attention(*args, h, CS, R,
@@ -201,14 +263,22 @@ def main() -> int:
     ap.add_argument("label", nargs="?", default=".")
     ap.add_argument("--merge", action="store_true",
                     help="time the merge kernels, not the attention's")
+    ap.add_argument("--cfg", default=None,
+                    help="a MaskFiner preset of configs/: time the "
+                         "attention at that model's shapes")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
     args = ap.parse_args()
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     out = {"label": args.label, "dtype": args.dtype, "b": B}
-    timer = time_merge if args.merge else time_attention
-    timer(out, gen, dev, getattr(torch, args.dtype))
+    dtype = getattr(torch, args.dtype)
+    if args.cfg:
+        out["cfg"] = args.cfg
+        time_maskfiner(out, os.path.basename(args.cfg), dev, dtype)
+    else:
+        timer = time_merge if args.merge else time_attention
+        timer(out, gen, dev, dtype)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

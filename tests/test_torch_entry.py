@@ -53,11 +53,13 @@ def test_main_eval_on_cpu(tmp_path, capsys):
 
 
 def test_presets_are_copies_of_the_jax_package():
-    """Every AFF preset is copied byte for byte, and loads. PyYAML is
-    installed wherever the port runs, so the copies are read with it."""
+    """Every preset (AFF and MaskFiner) is copied byte for byte, and
+    loads. PyYAML is installed wherever the port runs, so the copies are
+    read with it."""
     jax_presets = sorted(n for n in os.listdir(JAX_CFG)
-                         if n.startswith("aff_") and n.endswith(".yaml"))
+                         if n.endswith(".yaml"))
     assert sorted(os.listdir(PORT_CFG)) == jax_presets
+    assert sum(n.startswith("maskfiner_") for n in jax_presets) == 6
     for name in jax_presets:
         with open(os.path.join(JAX_CFG, name), "rb") as f:
             want = f.read()
@@ -65,7 +67,10 @@ def test_presets_are_copies_of_the_jax_package():
             assert f.read() == want, name
         assert isinstance(yaml.safe_load(want), dict)
         c = load_config(os.path.join(PORT_CFG, name))
-        assert c.MODEL.TYPE == "aff"
+        family = {"aff": "aff", "maskfiner_oracle": "maskfinerOT",
+                  "maskfiner_up": "maskfinerUD"}
+        assert c.MODEL.TYPE == next(t for p, t in family.items()
+                                    if name.startswith(p))
 
 
 def test_config_overrides_match_the_jax_loader():
@@ -87,6 +92,10 @@ def test_import_hygiene():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "new = {'ml_autofocusformermod_torch.models.' + m for m in\n"
+        "       ('mixres_common', 'mixres_vit', 'mixres_neighbour',\n"
+        "        'maskfiner_ot', 'maskfiner_ud')}\n"
+        "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'ml_autofocusformermod_tpu'))\n"
         "assert not bad, bad\n"
@@ -108,8 +117,22 @@ def test_cuda_entry_points_refuse_without_gpu():
         build_model(load_config(os.path.join(PORT_CFG, "aff_mini.yaml")))
 
 
-def test_maskfiner_is_not_ported_yet():
+def test_maskfiner_is_not_ported_yet(tmp_path):
+    """MaskFiner inference is ported; its training (the upsampling
+    curriculum) is not: ``main`` refuses it before any step, and an
+    unknown model type still raises."""
     c = load_config(os.path.join(PORT_CFG, "aff_mini.yaml"),
-                    opts=["MODEL.TYPE", "maskfinerUD"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                    opts=["MODEL.TYPE", "nosuchmodel"])
+    with pytest.raises(NotImplementedError, match="nosuchmodel"):
         build_model(c, device="cpu")
+    with pytest.raises(NotImplementedError, match="A10b"):
+        port_main.main([
+            "--cfg", os.path.join(PORT_CFG, "maskfiner_up_down_mini.yaml"),
+            "--device", "cpu", "--batch-size", "2", "--epochs", "1",
+            "--data-path", str(tmp_path / "no_dataset"),
+            "--output", str(tmp_path / "out"),
+            "--opts", "MODEL.NUM_CLASSES", "10", "DATA.IMG_SIZE", "64",
+            "TPU.COMPUTE_DTYPE", "float32",
+            "MODEL.MR.EMBED_DIM", "[32, 24, 16, 8, 16, 24, 32]",
+            "MODEL.MR.DEPTHS", "[1, 1, 1, 1, 1, 1, 1]",
+            "MODEL.MR.NUM_HEADS", "[2, 2, 2, 2, 2, 2, 2]"])
