@@ -47,7 +47,16 @@ Phases, one JSON line each:
    (``maskfiner_ud_mini_n193/n625/n1921``: its q, kv, positions, nearest
    clusters and tile metadata captured from the model, clamp_width 1023),
    b = 128 bf16 with the same times and bound, and b = 2 fp32, each with
-   its tile unions (``stress_unions``);
+   its tile unions (``stress_unions``); then both attention kernels on
+   the inputs and output gradients of a UD-Mini 224 training step
+   (``maskfiner_ud_mini_train_r1_*``: the curriculum's first epoch, every
+   token splits, n = 245 / 1029 / 4165; ``..._final_*``: n = 193 / 625 /
+   1921), b = 128 bf16 with times and bound and b = 2 fp32, every backward
+   output against the plain backward in f64 (in batch chunks), with the
+   backward's dk/dv scratch bytes; and ``attention_bwd_deterministic``:
+   two attention backwards give the same bytes for every output, at
+   AFF-Mini stages 1-3 (b = 128 bf16, b = 8 fp32) and at UD-Mini's n =
+   4165 (b = 128 bf16, b = 2 fp32);
 5. model_check: AFF-Mini 224 built through ``build_model`` and the port's
    ``aff_mini.yaml`` from a fixed seed, fp32, b = 2: the GPU forward (CUDA
    kernels, TF32 off) against the CPU forward (plain versions) on the same
@@ -71,6 +80,13 @@ Phases, one JSON line each:
    clusters equal on both devices, 25 (OT) and 16 (UD-Mini) attention
    launches per forward, no other kernel, one tile metadata per local
    level (3 and 5);
+   maskfiner_train_check: one train step of UD-Mini and of OT (with
+   ``MODEL.MR.DROP_RATE`` zeroed, ``overrides``: the devices' dropout
+   streams differ) at full width, fp32, b = 2, GPU against CPU from the
+   same weights and upsampling masks, at the curriculum's first ratios
+   and at the final ones: the same limits as train_check, and 16 + 16
+   (UD-Mini) or 25 + 25 (OT) attention launches per step, no other
+   kernel;
 7. eval / throughput: the entry point ``ml_autofocusformermod_torch.main``
    with ``--eval`` over a few synthetic batches, then ``--throughput`` at
    b = 128 in bf16 (50 warmup + 30 timed forwards);
@@ -80,13 +96,24 @@ Phases, one JSON line each:
 9. the MaskFiner path: ``main --eval`` on UD-Mini 224 (b = 32, bf16),
    then ``--throughput`` at b = 128 bf16 of UD-Mini and of OT, images/s
    beside the card's name and power limit; the attention forward is the
-   only kernel launched (16 and 25 per forward).
+   only kernel launched (16 and 25 per forward);
+10. maskfiner_train: the entry point training UD-Mini 224 (the MaskFiner
+   training path) and OT 224 in bf16 at b = 128 for two synthetic epochs
+   of 4 steps (the curriculum: ratio 1.0, then halfway to the final
+   ratios), a checkpoint and a validation each; per epoch
+   (``maskfiner_train_epoch``) the ratios, images/s after the first step,
+   step times and peak memory, beside the card's name and power limit.
+   Before the entry-point phases, dropout_check: the port's Dropout on
+   the card (keep share, exact 1 / (1 - p) scale, the same mask from a
+   reseeded generator).
 
 The launch counters are zeroed just before each run of the entry point
 and read just after. The ``kernels`` line gives each kernel's launches in
 the AFF-Mini training run and, under ``launches_by_path``, in the UD-Mini
-throughput run too, and for the attention forward its times at the
-UD-Mini shapes (``maskfiner_ud_mini``).
+throughput and training runs too, and for the attention kernels their
+times at the UD-Mini shapes (``maskfiner_ud_mini``: the forward at eval;
+``maskfiner_ud_mini_train_r1`` / ``_final``: forward and backward per
+training step).
 
 Then the ``kernels`` line, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
@@ -107,7 +134,7 @@ from ml_autofocusformermod_torch.config import load_config
 # the AFF-Mini shapes, the timers and the input builders, shared with the
 # A/B timing tool
 from ml_autofocusformermod_torch.time_kernels import (
-    ATTN_ARGS, ATTN_STAGES, CS, IC, MERGES, attention_inputs,
+    ATTN_ARGS, ATTN_STAGES, CS, IC, MERGES, RATIO_ONE, attention_inputs,
     captured_attention, clustered_stage, device_ms, merge_inputs, time_ms,
 )
 
@@ -811,6 +838,236 @@ def phase_maskfiner_model(torch):
                                  "plain path or launched the wrong kernels")
 
 
+def plain_backward(torch, args, g, geo, dtype, chunk=8):
+    """The plain backward in ``dtype`` over batch chunks of ``chunk``
+    images (its gathered (b, h, n, m, c_) tensors of a whole b = 128 batch
+    would not fit the card in f64): dq and dkv per image, the parameter
+    gradients summed over the chunks."""
+    from ml_autofocusformermod_torch.ops.cluster_attention import (
+        cluster_attention_backward_reference,
+    )
+
+    def cast(t):
+        return t.to(dtype) if t.is_floating_point() else t
+
+    b = args[0].shape[0]
+    parts = []
+    for s0 in range(0, b, chunk):
+        sl = [cast(t[s0:s0 + chunk] if i < 4 else t)
+              for i, t in enumerate(args)]
+        parts.append(cluster_attention_backward_reference(
+            *sl, cast(g[s0:s0 + chunk]), *geo))
+    return ([torch.cat([p[i] for p in parts]) for i in range(2)]
+            + [sum(p[i] for p in parts) for i in range(2, 6)])
+
+
+def phase_maskfiner_train_kernels(torch):
+    """The attention forward and backward at the shapes of a UD-Mini 224
+    training step, their inputs and output gradients captured from the
+    model (random weights, synthetic images, the trainer's loss), at the
+    curriculum's first ratios (every token splits: n = 245 / 1029 / 4165)
+    and at the final ones (n = 193 / 625 / 1921): b = 128 bf16 (check and
+    times) and b = 2 fp32 (check), every backward output against the
+    plain backward in f64. Returns the b = 128 rows by kernel and the
+    widest shape's captures (for the determinism phase)."""
+    from ml_autofocusformermod_torch.ops.cluster_attention import (
+        TILE, cluster_attention_backward, cluster_attention_reference,
+        fused_cluster_attention, union_rows,
+    )
+
+    dev = torch.device("cuda")
+    preset = MASKFINER["maskfiner_ud_mini"][0]
+    outs = ["dq", "dkv", "d_pe_kernel", "d_pe_bias", "d_blank_k",
+            "d_blank_v"]
+    rows = {"cluster_attention_fwd": [], "cluster_attention_bwd": []}
+    widest = {}
+    for tag, ratios in (("r1", RATIO_ONE[preset]), ("final", None)):
+        for b, dtype_name in ((128, "bfloat16"), (2, "float32")):
+            captured = captured_attention(preset, b, dtype_name, dev,
+                                          train=True, ratios=ratios)
+            widest_n = max(r["n"] for r in captured)
+            for row in captured:
+                a, g, meta = row["args"], row["g"], row["meta"]
+                args = [a[k] for k in ATTN_ARGS]
+                geo = (row["heads"], row["cs"], row["rel_width"],
+                       row["clamp"])
+                label = f"maskfiner_ud_mini_train_{tag}_{row['label']}_b{b}"
+                out = fused_cluster_attention(*args, *geo, meta=meta)
+                ref = cluster_attention_reference(*args, *geo)
+                torch.cuda.synchronize()
+                err_f = check(label, dtype_name, out, ref)
+                got = cluster_attention_backward(*args, g, *geo, meta=meta)
+                want = plain_backward(torch, args, g, geo, torch.float64)
+                torch.cuda.synchronize()
+                err_b = max(check(f"{label}_bwd_{o}", dtype_name, x, y)
+                            for o, x, y in zip(outs, got, want))
+                del want
+                n, c = row["n"], row["c"]
+                scratch = 4 * b * -(-n // TILE) * union_rows(
+                    meta, row["cs"]) * 2 * c
+                count = meta.ucount.float()
+                emit({"phase": "stress_unions", "shape": label,
+                      "union_clusters_max": int(count.max().item()),
+                      "union_clusters_mean": count.mean().item(),
+                      "bwd_scratch_bytes": scratch})
+                if tag == "r1" and n == widest_n:
+                    widest[dtype_name] = (args, g, geo, meta)
+                if b != 128:
+                    continue
+                common = dict(model="maskfiner_ud_mini_train", ratios=tag,
+                              shape=row["label"], b=b, n=n,
+                              heads=row["heads"], c=c,
+                              clamp_width=row["clamp"],
+                              per_pass=row["per_pass"])
+                fwd = lambda: fused_cluster_attention(*args, *geo, meta=meta)
+                bwd = lambda: cluster_attention_backward(*args, g, *geo,
+                                                         meta=meta)
+                plain_f = lambda: [cluster_attention_reference(
+                    *(t[s0:s0 + 32] if i < 4 else t
+                      for i, t in enumerate(args)), *geo)
+                    for s0 in range(0, b, 32)]  # in chunks, as plain_b
+                plain_b = lambda: plain_backward(torch, args, g, geo,
+                                                 torch.float32, chunk=32)
+                for kernel, fn, plain, work, err in (
+                        ("cluster_attention_fwd", fwd, plain_f,
+                         attn_work(torch, a, row["heads"], row["cs"]), err_f),
+                        ("cluster_attention_bwd", bwd, plain_b,
+                         attn_bwd_work(torch, a, g, row["heads"], row["cs"]),
+                         err_b)):
+                    bms, by = bound_ms(work[0], work[1], "bfloat16")
+                    rows[kernel].append(dict(
+                        **common, ms=time_ms(fn), device_ms=device_ms(fn),
+                        plain_ms=time_ms(plain, iters=3, warmup=1),
+                        bound_ms=bms, bound_by=by, bytes=work[0],
+                        flops=work[1], max_abs_err=err))
+                    extra = ({"bwd_scratch_bytes": scratch}
+                             if kernel == "cluster_attention_bwd" else {})
+                    emit({"phase": "kernel_time", "kernel": kernel,
+                          **rows[kernel][-1], **extra})
+    return rows, widest
+
+
+def phase_attention_bwd_deterministic(torch, widest):
+    """Two attention backwards on the same inputs give the same bytes for
+    every output (no float atomics): AFF-Mini stages 1-3 (b = 128 bf16 and
+    b = 8 fp32) and the widest UD-Mini training shape (n = 4165, captured,
+    b = 128 bf16 and b = 2 fp32)."""
+    from ml_autofocusformermod_torch.ops.cluster_attention import (
+        cluster_attention_backward, tile_metadata,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+    cases = []
+    for label, n, h, c, _ in ATTN_STAGES:
+        for b, dtype in ((128, torch.bfloat16), (8, torch.float32)):
+            a = attention_inputs(gen, b, n, h, c, dev, dtype)
+            args = [a[k] for k in ATTN_ARGS]
+            g = torch.randn(b, n, c, generator=gen).to(dev, dtype)
+            cases.append((f"aff_mini_{label}_b{b}", args, g, (h, CS, 55, 0),
+                          tile_metadata(a["ncc"])))
+    for dtype_name, (args, g, geo, meta) in widest.items():
+        cases.append((f"maskfiner_ud_mini_train_r1_n{args[0].shape[1]}"
+                      f"_b{args[0].shape[0]}", args, g, geo, meta))
+    for name, args, g, geo, meta in cases:
+        first = cluster_attention_backward(*args, g, *geo, meta=meta)
+        second = cluster_attention_backward(*args, g, *geo, meta=meta)
+        torch.cuda.synchronize()
+        equal = {o: bool(torch.equal(x, y)) for o, x, y in zip(
+            ["dq", "dkv", "d_pe_kernel", "d_pe_bias", "d_blank_k",
+             "d_blank_v"], first, second)}
+        ok = all(equal.values())
+        emit({"phase": "attention_bwd_deterministic", "shape": name,
+              "dtype": str(args[0].dtype).split(".")[1], "equal": equal,
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"attention backward not reproducible at "
+                                 f"{name}: {equal}")
+
+
+def phase_maskfiner_train_check(torch):
+    """One ``make_train_step`` step of UD-Mini and of OT 224 at full width,
+    fp32, b = 2, on the GPU (kernels, TF32 off) against the same step on
+    the CPU (plain versions) from the same weights and upsampling masks
+    (the train state's CPU generator), at the curriculum's first ratios
+    and at the final ones: loss and grad_norm within 1e-4 relative, every
+    gradient within 1e-3 of its tensor's largest entry (floored at 1e-5 of
+    the gradient norm), the BatchNorm statistics within 1e-5 (the presets
+    have none), and the attention forward and backward launches per step
+    (16 and 16 for UD-Mini, 25 and 25 for OT), no other kernel. OT runs
+    with ``MODEL.MR.DROP_RATE`` zeroed: the two devices' dropout streams
+    differ."""
+    import numpy as np
+
+    from ml_autofocusformermod_torch.models.build import build_model
+    from ml_autofocusformermod_torch.train.trainer import (
+        create_train_state, make_train_step,
+    )
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 224, 224)).astype(
+        np.float32))
+    y = torch.tensor([3, 977])
+    for name, (preset, attn, _) in MASKFINER.items():
+        opts = ["TPU.COMPUTE_DTYPE", "float32"]
+        overrides = {}
+        if name == "maskfiner_ot":
+            overrides["MODEL.MR.DROP_RATE"] = [0.0] * 4
+            opts += ["MODEL.MR.DROP_RATE", str(overrides["MODEL.MR.DROP_RATE"])]
+        cfg = port_config(preset, opts)
+        for tag, ratios in (("r1", RATIO_ONE[preset]), ("final", None)):
+            def one_step(device):
+                model = build_model(cfg, device, seed=0,
+                                    upscale_ratios=ratios)
+                state, schedule = create_train_state(cfg, model, 10)
+                out = make_train_step(cfg, state, schedule)(
+                    x.to(device), y.to(device))
+                grads = {k: p.grad.float().cpu()
+                         for k, p in model.named_parameters()}
+                stats = {k: b.float().cpu() for k, b in model.named_buffers()
+                         if k.endswith(("running_mean", "running_var"))}
+                return out, grads, stats
+
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                zero_counters()
+                out, grads, stats = one_step("cuda")
+                torch.cuda.synchronize()
+                launches = read_counters()
+                ref, ref_grads, ref_stats = one_step("cpu")
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            loss, ref_loss = out["loss"].item(), ref["loss"].item()
+            gn, ref_gn = out["grad_norm"].item(), ref["grad_norm"].item()
+            floor = 1e-5 * ref_gn
+            worst = max(((grads[k] - t).abs().max().item()
+                         / max(t.abs().max().item(), floor), k)
+                        for k, t in ref_grads.items())
+            stat_err = max([(stats[k] - t).abs().max().item()
+                            / max(t.abs().max().item(), 1e-30)
+                            for k, t in ref_stats.items()] or [0.0])
+            want = dict.fromkeys(counters(), 0)
+            want["cluster_attention_fwd"] = attn
+            want["cluster_attention_bwd"] = attn
+            ok = (abs(loss - ref_loss) <= 1e-4 * abs(ref_loss)
+                  and abs(gn - ref_gn) <= 1e-4 * abs(ref_gn)
+                  and worst[0] <= 1e-3 and stat_err <= 1e-5
+                  and launches == want and out["grads_finite"]
+                  and math.isfinite(loss))
+            emit({"phase": "maskfiner_train_check", "model": name,
+                  "ratios": tag, "dtype": "float32", "b": 2,
+                  "overrides": overrides, "loss": loss, "loss_cpu": ref_loss,
+                  "grad_norm": gn, "grad_norm_cpu": ref_gn,
+                  "worst_grad_rel_err": worst[0], "worst_grad": worst[1],
+                  "bn_stats": len(ref_stats), "bn_stats_rel_err": stat_err,
+                  "launches_per_step": launches, "ok": ok})
+            if not ok:
+                raise AssertionError(f"{name} ({tag}) GPU train step "
+                                     "disagrees with the CPU plain path or "
+                                     "launched the wrong kernels")
+
+
 def counters():
     """The launch counters of the kernel wrappers, by kernel name."""
     from ml_autofocusformermod_torch.ops.cluster_attention import (
@@ -1041,14 +1298,108 @@ def phase_train(torch, smi):
     return launches
 
 
-def kernels_line(rows, launches, mf_rows, mf_launches):
+def phase_dropout(torch):
+    """The port's Dropout on the card (OT's preset drops 0.2 at level 1):
+    its keep share within 5 standard deviations of 1 - p, every kept
+    element scaled by exactly 1 / (1 - p), and the same mask again from a
+    reseeded generator, bf16 and fp32."""
+    from ml_autofocusformermod_torch.models.layers import Dropout
+
+    n, p = 1 << 22, 0.2
+    for dtype in (torch.float32, torch.bfloat16):
+        drop = Dropout(p).train()
+        drop.generator = torch.Generator(device="cuda").manual_seed(7)
+        x = torch.ones(n, device="cuda", dtype=dtype)
+        y = drop(x)
+        kept = y != 0
+        share = kept.float().mean().item()
+        scale_ok = bool((y[kept] == 1.0 / (1.0 - p)).all())
+        drop.generator.manual_seed(7)
+        again = bool(torch.equal(drop(x), y))
+        ok = (abs(share - (1 - p)) <= 5 * (p * (1 - p) / n) ** 0.5
+              and scale_ok and again and y.dtype == dtype)
+        emit({"phase": "dropout_check", "dtype": str(dtype).split(".")[1],
+              "p": p, "n": n, "keep_share": share, "scale_exact": scale_ok,
+              "replays_from_seed": again, "ok": ok})
+        if not ok:
+            raise AssertionError("Dropout on the card: wrong share, scale "
+                                 "or stream")
+
+
+def phase_maskfiner_train(torch, smi):
+    """``main`` training UD-Mini 224 (the slice's main path) and OT 224 at
+    full width, bf16, b = 128, for two synthetic epochs of 4 steps: the
+    curriculum trains epoch 0 at ratio 1.0 and epoch 1 halfway to the
+    final ratios (UD-Mini 0.9; OT 0.9 / 0.8 / 0.8). Per epoch the ratios,
+    images/s after the first step, step ms and peak memory. Returns the
+    launches of each run by model."""
+    import os
+    import shutil
+    import tempfile
+
+    from ml_autofocusformermod_torch.train import curriculum
+
+    by_model = {}
+    for name, (preset, attn, _) in MASKFINER.items():
+        final = port_config(preset, []).MODEL.MR.UPSCALE_RATIO
+        out = tempfile.mkdtemp(prefix="chip_smoke_mf_train_")
+        try:
+            result, secs, launches = run_main(torch, [
+                "--cfg", preset_path(preset), "--device", "cuda",
+                "--data-path", "no_dataset", "--batch-size", "128",
+                "--epochs", "2", "--output", out])
+            train = result["train"]
+            ckpt = os.path.exists(train["checkpoint"])
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+        epochs = train["epochs"]
+        steps = sum(e["steps"] for e in epochs)
+        # throughput protocol, the train steps, per epoch 512 validation
+        # images / 128
+        want = dict.fromkeys(counters(), 0)
+        want["cluster_attention_fwd"] = attn * (50 + 30 + steps + 2 * 4)
+        want["cluster_attention_bwd"] = attn * steps
+        ratios = [e["ratios"] for e in epochs]
+        ok = (launches == want and steps == 8 and ckpt
+              and all(e["skipped_steps"] == 0 for e in epochs)
+              and ratios == [curriculum.epoch_upsample_ratios(final, 2, e)
+                             for e in (0, 1)]
+              and ratios[0] != ratios[1]
+              and all(math.isfinite(v) for v in (train["train_loss"],
+                                                 train["last_grad_norm"],
+                                                 train["val_loss"])))
+        for e in epochs:
+            emit({"phase": "maskfiner_train_epoch", "model": name,
+                  "batch": 128, "dtype": "bfloat16", **e, "card": smi})
+        emit({"phase": "maskfiner_train", "model": name, "batch": 128,
+              "dtype": "bfloat16", "steps": steps,
+              "img_per_s_after_first": [e["img_s_after_first"]
+                                        for e in epochs],
+              "step_ms_median": [1e3 * sorted(e["step_seconds"])[
+                  len(e["step_seconds"]) // 2] for e in epochs],
+              "ratios": ratios,
+              "peak_memory_bytes": [e["peak_memory_bytes"] for e in epochs],
+              "train_loss": train["train_loss"],
+              "val_loss": train["val_loss"], "checkpoint_written": ckpt,
+              "card": smi, "seconds": secs, "launches": launches, "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name} training run: launches "
+                                 f"{launches}, ratios {ratios}")
+        by_model[name] = launches
+    return by_model
+
+
+def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
+                 mft_launches):
     """One entry per CUDA kernel: launches in the training run of the entry
     point (the AFF path, which runs them all), the worst check error, and
     per AFF-Mini b128 bf16 pass (a forward for the forward kernels, a
     backward for the backward kernels) the sum of the per-call times over
-    the pass's launches; then the same for the MaskFiner path (UD-Mini
-    b128 bf16 ``--throughput``, which runs the attention forward only)
-    under ``maskfiner_ud_mini``."""
+    the pass's launches; then the same for the MaskFiner paths: UD-Mini
+    b128 bf16 ``--throughput`` (the attention forward only) under
+    ``maskfiner_ud_mini``, and UD-Mini b128 bf16 training (the attention
+    forward and backward, per training step at the curriculum's first and
+    at the final ratios) under ``maskfiner_ud_mini_train``."""
     def total(rs, key):
         return sum(r[key] * r["per_pass"] for r in rs)
 
@@ -1056,15 +1407,23 @@ def kernels_line(rows, launches, mf_rows, mf_launches):
         return ("bytes" if all(r["bound_by"] == "bytes" for r in rs)
                 else "operations")
 
+    def block(rs, n_launches):
+        return {"launches": n_launches, "ms": total(rs, "ms"),
+                "device_ms": total(rs, "device_ms"),
+                "plain_ms": total(rs, "plain_ms"),
+                "bound_ms": total(rs, "bound_ms"), "bound_by": bound_by(rs),
+                "library_ms": None, "per_shape": rs}
+
     out = []
     for name, (src, replaces, also) in KERNELS.items():
         rs = rows[name]
         mf = mf_rows if name == "cluster_attention_fwd" else []
+        mft = mft_rows.get(name, [])
         entry = {
             "name": name, "route": "cuda", "source": CSRC + src,
             "replaces": replaces, "also_replaces": also,
             "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rs + mf),
+            "max_abs_err": max(r["max_abs_err"] for r in rs + mf + mft),
             "ms": total(rs, "ms"), "device_ms": total(rs, "device_ms"),
             "plain_ms": total(rs, "plain_ms"),
             "bound_ms": total(rs, "bound_ms"), "bound_by": bound_by(rs),
@@ -1072,15 +1431,19 @@ def kernels_line(rows, launches, mf_rows, mf_launches):
             "per_shape": rs,
             "launches_by_path": {"aff_mini_train": launches[name],
                                  "maskfiner_ud_mini_throughput":
-                                     mf_launches[name]},
+                                     mf_launches[name],
+                                 "maskfiner_ud_mini_train":
+                                     mft_launches["maskfiner_ud_mini"][name],
+                                 "maskfiner_ot_train":
+                                     mft_launches["maskfiner_ot"][name]},
         }
         if mf:
-            entry["maskfiner_ud_mini"] = {
-                "launches": mf_launches[name], "ms": total(mf, "ms"),
-                "device_ms": total(mf, "device_ms"),
-                "plain_ms": total(mf, "plain_ms"),
-                "bound_ms": total(mf, "bound_ms"), "bound_by": bound_by(mf),
-                "library_ms": None, "per_shape": mf}
+            entry["maskfiner_ud_mini"] = block(mf, mf_launches[name])
+        for tag in ("r1", "final"):
+            part = [r for r in mft if r["ratios"] == tag]
+            if part:
+                entry[f"maskfiner_ud_mini_train_{tag}"] = block(
+                    part, mft_launches["maskfiner_ud_mini"][name])
         out.append(entry)
     return {"kernels": out}
 
@@ -1096,13 +1459,20 @@ def main() -> int:
             "cluster_attention_bwd": bwd["attention"],
             **phase_merge(torch)}
     mf_rows = phase_maskfiner_kernels(torch)
+    mft_rows, widest = phase_maskfiner_train_kernels(torch)
+    phase_attention_bwd_deterministic(torch, widest)
+    del widest
     phase_model(torch)
     phase_train_check(torch)
     phase_maskfiner_model(torch)
+    phase_maskfiner_train_check(torch)
+    phase_dropout(torch)
     phase_entry(torch, smi)
     launches = phase_train(torch, smi)
     mf_launches = phase_maskfiner_entry(torch, smi)
-    emit(kernels_line(rows, launches, mf_rows, mf_launches))
+    mft_launches = phase_maskfiner_train(torch, smi)
+    emit(kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
+                      mft_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

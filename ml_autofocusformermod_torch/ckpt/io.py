@@ -7,7 +7,7 @@ retained; auto-resume takes the newest checkpoint by mtime; a checkpoint
 holds ``(state, epoch, max_accuracy, rng state)``. ``state`` is the model's
 ``state_dict`` (parameters and BatchNorm buffers), the optimizer's state,
 the EMA copy and the step count; the rng state is that of the train
-state's two generators. Saves are synchronous and atomic (a temporary file
+state's three generators. Saves are synchronous and atomic (a temporary file
 renamed into place), so auto-resume never sees a partial checkpoint.
 """
 
@@ -19,7 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["save_checkpoint", "load_checkpoint", "auto_resume_helper"]
+__all__ = ["save_checkpoint", "load_checkpoint", "load_model_weights",
+           "auto_resume_helper"]
 
 _CKPT_RE = re.compile(r"ckpt_epoch_(\d+)\.pt$")
 
@@ -35,7 +36,8 @@ def _payload(state, epoch: int, max_accuracy: float) -> dict:
         "epoch": epoch,
         "max_accuracy": max_accuracy,
         "rng": {"drop": state.drop_generator.get_state(),
-                "mix": state.mix_generator.get_state()},
+                "mix": state.mix_generator.get_state(),
+                "upsample": state.upsample_generator.get_state()},
     }
 
 
@@ -75,7 +77,20 @@ def load_checkpoint(path: str, state) -> Tuple[object, int, float]:
     state.step = int(saved["step"])
     state.drop_generator.set_state(ckpt["rng"]["drop"].cpu())
     state.mix_generator.set_state(ckpt["rng"]["mix"].cpu())
+    if "upsample" in ckpt["rng"]:  # written before MaskFiner training
+        state.upsample_generator.set_state(ckpt["rng"]["upsample"].cpu())
     return state, int(ckpt["epoch"]), float(ckpt["max_accuracy"])
+
+
+def load_model_weights(path: str, model) -> int:
+    """Load only the model's ``state_dict`` (parameters and BatchNorm
+    buffers) of the checkpoint at ``path`` into ``model`` (strict); returns
+    the checkpoint's epoch. For evaluation and throughput, where no train
+    state exists."""
+    device = next(model.parameters()).device
+    ckpt = torch.load(path, map_location=device, weights_only=False)
+    model.load_state_dict(ckpt["state"]["model"])
+    return int(ckpt["epoch"])
 
 
 def auto_resume_helper(output_dir: str) -> Optional[str]:

@@ -19,10 +19,8 @@
 // Padded slots (token >= n) have p = 0 and contribute nothing.
 //
 // What bounds it on the H100: the bytes are q, kv, g once and dq, dkv
-// once (0.05 ms for AFF-Mini stage 1 at b128 bf16). A kernel with one
-// warp per (query, head) scatters dk/dv with one f32 global atomic per
-// (query, slot, channel): b n m 2c atomics, 1.23e9 at stages 1 and 2,
-// which ran at about 380 G atomics/s.
+// once (0.05 ms for AFF-Mini stage 1 at b128 bf16), plus the tile
+// partials of dk/dv below, written once and read once.
 //
 // The tiling (cluster_attention_tile.cuh): one block per (image, tile of
 // 64 queries, group of G heads), recompute mode, two passes over the
@@ -35,21 +33,26 @@
 //     slot) for all G heads) turns the kept logits and dP into P and dL
 //     and sums the rel-pos parameter gradients; then dQ += dL K in shared
 //     memory, and dK = dL^T Q and dV = P^T G as tile products whose sum
-//     over the tile's 64 queries is taken inside the product. Each union
-//     row then gets one float2 global atomic per channel pair per tile:
-//     about (64 m) / (union rows) times fewer atomics than one per
-//     (query, slot); atomics remain only where neighbouring tiles' unions
-//     overlap.
+//     over the tile's 64 queries is taken inside the product.
 // When the rows keep their logits per slot, pass 2 computes no product of
 // pass 1 again and stages a chunk's k rows again only when the union spans
 // several chunks; when they keep them per chunk position (a large m), it
 // computes a chunk's q.k^T and g.v^T again. A head wider than 64 channels
-// takes the products over channel chunks, one block per output slice. The
-// 6h + 2c parameter gradients are reduced per block in shared memory and
-// flushed with one global atomic per value.
-// Atomics add in an order that changes from run to run, so dkv and the
-// parameter gradients are not bitwise reproducible (the plain CPU path
-// is).
+// takes the products over channel chunks, one block per output slice.
+//
+// No float atomics: every sum is taken in an order fixed by the shapes
+// alone, so a call repeated on the same inputs gives the same bits.
+//   - dk/dv: a block writes its tile's sums, one row per union position,
+//     to the partials dkv_part[image, tile, union position] (f32, written
+//     once). A second kernel (dkv_owner_kernel) gives each cluster of each
+//     image one block, which finds the tiles whose union names the
+//     cluster (a binary search of each tile's sorted union) and sums their
+//     rows in ascending tile order, writing dkv once in kv's dtype.
+//   - the rel-pos gradients: each warp sums its rows' terms in a slot of
+//     its own; the block adds the 16 slots in warp order.
+//   - the 6h + 2c parameter gradients: each block writes its values to a
+//     row of its own of dparams (b * ntiles rows); the caller sums the
+//     rows (ops/cluster_attention.py, a torch sum over the rows).
 
 #include "cluster_attention_tile.cuh"
 
@@ -114,21 +117,22 @@ __device__ __forceinline__ void grad_chunk(Bwd<E, VEC, WIDE>& k, bool raw) {
     }
   });
   const int lane = threadIdx.x & 31;
+  float* mine = k.acc + (threadIdx.x >> 5) * 6 * k.G;  // this warp's slot
 #pragma unroll
   for (int g = 0; g < kMaxG; ++g) {
     if (g < k.G) {
 #pragma unroll
       for (int x = 0; x < 5; ++x) {
         const float v = warp_sum(acc[g][x]);
-        if (lane == 0) atomicAdd(&k.acc[g * 6 + x], v);
+        if (lane == 0) mine[g * 6 + x] += v;
       }
     }
   }
 }
 
-// dQ += dL K (shared memory); dK = dL^T Q and dV = P^T G, flushed to dkv
-// with global atomics, one per channel pair of each chunk row; all over
-// the block's channel slice.
+// dQ += dL K (shared memory); dK = dL^T Q and dV = P^T G, written to the
+// tile's partials, one row per union position of the chunk; all over the
+// block's channel slice.
 template <typename E, bool VEC, bool WIDE>
 __device__ __forceinline__ void products(Bwd<E, VEC, WIDE>& k) {
   constexpr bool TC = Bwd<E, VEC, WIDE>::TC;
@@ -148,28 +152,30 @@ __device__ __forceinline__ void products(Bwd<E, VEC, WIDE>& k) {
   const int c_ = k.c_, cw = k.cws;
   const bool pairs = c_ % 2 == 0;
   const int* stok = k.stok;
-  float* dkvb = P.dkv + static_cast<long long>(k.bi) * P.n * 2 * k.c +
-                k.hg * k.G * 2 * c_ + k.chs;
   const long long c2 = 2 * k.c;
-  auto flush = [=](int part) {
+  float* part = P.dkv_part +
+                ((static_cast<long long>(k.bi) * P.ntiles + k.t) * P.ucap +
+                 k.p0) * c2 +
+                k.hg * k.G * 2 * c_ + k.chs;
+  auto flush = [=](int part_) {
     return [=](int g, int r, int col, float v0, float v1) {
-      const int tok = stok[r];
-      if (tok < 0 || col >= cw) return;
-      float* dst = dkvb + tok * c2 + (2 * g + part) * c_ + col;
+      if (stok[r] < 0 || col >= cw) return;
+      float* dst = part + r * c2 + (2 * g + part_) * c_ + col;
       if (pairs) {
-        atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v0, v1));
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
       } else {
-        atomicAdd(dst, v0);
-        if (col + 1 < cw) atomicAdd(dst + 1, v1);
+        dst[0] = v0;
+        if (col + 1 < cw) dst[1] = v1;
       }
     };
   };
+  // every live position's row is written, zeros included (no skip_empty)
   tile_mm<TC>(View<E, true>{k.sdl, ldp, kTile * ldp},
               View<E, false>{k.sq, lds, kTile * lds}, k.G, Ue, P.CP, kTile,
-              flush(0), k.occupied_pr(), true);
+              flush(0), k.occupied_pr(), false);
   tile_mm<TC>(View<E, true>{k.sp, ldp, kTile * ldp},
               View<E, false>{k.sg, lds, kTile * lds}, k.G, Ue, P.CP, kTile,
-              flush(1), k.occupied_pr(), true);
+              flush(1), k.occupied_pr(), false);
 }
 
 // dq rows, the blank-token gradients and the rel-pos parameter gradients
@@ -195,8 +201,9 @@ __device__ __forceinline__ void finish(Bwd<E, VEC, WIDE>& k) {
     dq[static_cast<long long>(i) * c + g * c_ + ch] = from_f<E>(v);
   }
   // d_blank_k and d_blank_v: a row group per (head, channel) pair, its
-  // threads over the rows
-  float* dp = P.dparams;
+  // threads over the rows; the block's row of dparams
+  float* dp = P.dparams + (static_cast<long long>(k.bi) * P.ntiles + k.t) *
+                              (6 * h + 2 * c);
   const int q = threadIdx.x % kRow;
   for (int e0 = 0; e0 < w; e0 += kTile) {
     const int e = e0 + threadIdx.x / kRow;
@@ -212,8 +219,8 @@ __device__ __forceinline__ void finish(Bwd<E, VEC, WIDE>& k) {
     sk = row_sum(sk);
     sv = row_sum(sv);
     if (e < w && q == 0) {
-      atomicAdd(&dp[6 * h + (chs + ch) * h + k.head(g)], sk);
-      atomicAdd(&dp[6 * h + c + k.head(g) * c_ + chs + ch], sv);
+      dp[6 * h + (chs + ch) * h + k.head(g)] = sk;
+      dp[6 * h + c + k.head(g) * c_ + chs + ch] = sv;
     }
   }
   if (k.sl != 0) return;  // block-uniform
@@ -222,12 +229,14 @@ __device__ __forceinline__ void finish(Bwd<E, VEC, WIDE>& k) {
     float s = 0.f;
     for (int i = lane; i < k.rows; i += 32) s -= k.dlb_[k.st_at(warp, i)];
     s = warp_sum(s);
-    if (lane == 0) k.acc[warp * 6 + 5] = s;
+    if (lane == 0) dp[5 * h + k.head(warp)] = s;
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < 6 * k.G; e += kThreads) {
-    const int g = e / 6, x = e - g * 6;
-    atomicAdd(&dp[x < 5 ? x * h + k.head(g) : 5 * h + k.head(g)], k.acc[e]);
+  // d_pe_kernel: the warps' slots added in warp order
+  for (int e = threadIdx.x; e < 5 * k.G; e += kThreads) {
+    const int g = e / 5, x = e - g * 5;
+    float s = 0.f;
+    for (int wi = 0; wi < kWarps; ++wi) s += k.acc[(wi * k.G + g) * 6 + x];
+    dp[x * h + k.head(g)] = s;
   }
 }
 
@@ -278,8 +287,89 @@ cluster_attention_bwd_kernel(const __grid_constant__ Params p) {
   finish(k);
 }
 
+// dkv of one cluster of one image (block (cluster, image)): the rows of
+// its cs tokens are the sums of the tile partials of every tile whose
+// union names the cluster, in ascending tile order. Each tile's union is
+// sorted, so a binary search finds the cluster's union index in it; the
+// list of (tile, index) is compacted in tile order by warp 0. Every output
+// element is summed by one thread in that order: the same bits on every
+// run. A token that no tile names gets 0.
+constexpr int kOwnThreads = 256;
+
+template <typename E, bool VEC4>
+__global__ void __launch_bounds__(kOwnThreads)
+dkv_owner_kernel(const float* __restrict__ part, const int* __restrict__ ucl,
+                 const int* __restrict__ ucount, E* __restrict__ dkv, int n,
+                 int cs, int ntiles, int nnc, int ucap, int c2,
+                 int meta_batched) {
+  extern __shared__ int own[];  // [ntiles] found index, [ntiles] the list
+  int* found = own;
+  int* list = own + ntiles;
+  __shared__ int count;
+  const int cl = blockIdx.x, bi = blockIdx.y, tid = threadIdx.x;
+  const long long mb = static_cast<long long>(meta_batched ? bi : 0) * ntiles;
+  for (int t = tid; t < ntiles; t += kOwnThreads) {
+    const int* u = ucl + (mb + t) * kTile * nnc;
+    int lo = 0, hi = ucount[mb + t];  // the first id >= cl in [lo, hi)
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (__ldg(u + mid) < cl)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    found[t] = lo < ucount[mb + t] && __ldg(u + lo) == cl ? lo : -1;
+  }
+  __syncthreads();
+  if (tid < 32) {
+    int at = 0;
+    for (int t0 = 0; t0 < ntiles; t0 += 32) {
+      const int t = t0 + tid;
+      const int u = t < ntiles ? found[t] : -1;
+      const unsigned has = __ballot_sync(0xffffffffu, u >= 0);
+      if (u >= 0)
+        list[at + __popc(has & ((1u << tid) - 1u))] = t * ucap + u * cs;
+      at += __popc(has);
+    }
+    if (tid == 0) count = at;
+  }
+  __syncthreads();
+  const int cnt = count;
+  const int rows = min(cs, n - cl * cs);
+  const float* src = part + static_cast<long long>(bi) * ntiles * ucap * c2;
+  E* dst = dkv + (static_cast<long long>(bi) * n + cl * cs) * c2;
+  if constexpr (VEC4) {
+    const int per = c2 / 4;
+    for (int e = tid; e < rows * per; e += kOwnThreads) {
+      const int r = e / per, ch = (e - r * per) * 4;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int i = 0; i < cnt; ++i) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(
+            src + static_cast<long long>(list[i] + r) * c2 + ch));
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+      E* o = dst + static_cast<long long>(r) * c2 + ch;
+      o[0] = from_f<E>(s.x);
+      o[1] = from_f<E>(s.y);
+      o[2] = from_f<E>(s.z);
+      o[3] = from_f<E>(s.w);
+    }
+  } else {
+    for (int e = tid; e < rows * c2; e += kOwnThreads) {
+      const int r = e / c2, ch = e - r * c2;
+      float s = 0.f;
+      for (int i = 0; i < cnt; ++i)
+        s += src[static_cast<long long>(list[i] + r) * c2 + ch];
+      dst[static_cast<long long>(r) * c2 + ch] = from_f<E>(s);
+    }
+  }
+}
+
 template <typename E>
-int launch(Params& p, int esize, bool vec, cudaStream_t stream) {
+int launch(Params& p, int esize, bool vec, void* dkv, cudaStream_t stream) {
   int bytes;
   if (!apply_plan(p, esize, true, &bytes))
     return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -292,21 +382,40 @@ int launch(Params& p, int esize, bool vec, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<grid_of(p), kThreads, bytes, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int c2 = 2 * p.h * p.c_;
+  const int clusters = (p.n + p.cs - 1) / p.cs;
+  const int obytes = 2 * p.ntiles * static_cast<int>(sizeof(int));
+  auto owner = c2 % 4 == 0 ? dkv_owner_kernel<E, true>
+                           : dkv_owner_kernel<E, false>;
+  err = cudaFuncSetAttribute(owner,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             obytes);
+  if (err != cudaSuccess) return err;
+  owner<<<dim3(clusters, p.b), kOwnThreads, obytes, stream>>>(
+      p.dkv_part, p.ucl, p.ucount, static_cast<E*>(dkv), p.n, p.cs,
+      p.ntiles, p.nnc, p.ucap, c2, p.meta_batched);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, kv, g_out and dq). dkv (b, n, 2c)
-// and dparams (6h + 2c) are float32 and must be zeroed by the caller. The
-// metadata is as for cluster_attention_fwd. Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 (q, kv, g_out, dq and dkv). The
+// metadata is as for cluster_attention_fwd. dkv_part (b, ntiles, ucap, 2c)
+// f32 holds the tiles' partial dk/dv, ucap >= cs * max(ucount) rows per
+// tile; dparams (b * ntiles, 6h + 2c) f32 one row per (image, tile), whose
+// sum over the rows is d_pe_kernel (5, h), d_pe_bias (h), d_blank_k
+// (c_, h) and d_blank_v (h, c_). dq, dkv and both buffers are written in
+// full: no zeroing needed. Returns a cudaError_t.
 extern "C" int cluster_attention_bwd(
     const void* q, const void* kv, const void* pos, const void* ucl,
     const void* ucount, const void* nidx, const void* pe_kernel,
     const void* pe_bias, const void* blank_k, const void* blank_v,
-    const void* g_out, void* dq, void* dkv, void* dparams, int b, int n,
-    int h, int c_, int nnc, int cs, int rel_width, int clamp_width,
-    long long pos_bstride, int meta_batched, int dtype, void* stream) {
+    const void* g_out, void* dq, void* dkv, void* dkv_part, void* dparams,
+    int b, int n, int h, int c_, int nnc, int cs, int rel_width,
+    int clamp_width, long long pos_bstride, int meta_batched, int ucap,
+    int dtype, void* stream) {
   if (static_cast<long long>(b) * n == 0) return cudaSuccess;
   Params p = {};
   p.q = q;
@@ -321,7 +430,7 @@ extern "C" int cluster_attention_bwd(
   p.blank_v = static_cast<const float*>(blank_v);
   p.g_out = g_out;
   p.dq = dq;
-  p.dkv = static_cast<float*>(dkv);
+  p.dkv_part = static_cast<float*>(dkv_part);
   p.dparams = static_cast<float*>(dparams);
   p.b = b;
   p.n = n;
@@ -334,11 +443,12 @@ extern "C" int cluster_attention_bwd(
   p.R = static_cast<float>(rel_width);
   p.pos_bstride = pos_bstride;
   p.meta_batched = meta_batched;
+  p.ucap = ucap;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool aligned = aligned16(q) && aligned16(kv) && aligned16(g_out);
   if (dtype == 0)
-    return launch<float>(p, 4, aligned && c_ % 4 == 0, st);
+    return launch<float>(p, 4, aligned && c_ % 4 == 0, dkv, st);
   if (dtype == 1)
-    return launch<bf16>(p, 2, aligned && c_ % 8 == 0, st);
+    return launch<bf16>(p, 2, aligned && c_ % 8 == 0, dkv, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -175,7 +175,8 @@ __host__ __device__ inline Layout make_layout(int esize, int G, int CP,
   L.occ = take(&off, T / 16 * (Uc / 16));
   L.nidx = take(&off, nnc <= kSmemNnc ? T * nnc * 4 : 0);
   L.rng = take(&off, 2 * T * 4);
-  L.acc = take(&off, 6 * G * 4);
+  // the backward's rel-pos gradient sums: one slot per warp
+  L.acc = take(&off, (bwd ? kWarps : 1) * 6 * G * 4);
   L.wts = take(&off, 6 * G * 4);
   L.bk = take(&off, 2 * kMaxCP * 4);  // blank k, v of one channel chunk
   L.bytes = off;
@@ -469,14 +470,15 @@ struct Params {
   void* out;               // forward: (b, n, c) in q's dtype
   const void* g_out;       // backward: (b, n, c)
   void* dq;                // backward: (b, n, c) in q's dtype
-  float* dkv;              // backward: (b, n, 2c) f32, zeroed
-  float* dparams;          // backward: 6h + 2c f32, zeroed
+  float* dkv_part;  // backward: (b, ntiles, ucap, 2c) f32 tile partials
+  float* dparams;   // backward: (b * ntiles, 6h + 2c) f32 block partials
   int b, n, h, c_, nnc, cs;
   int G, CP, Uc, keep, nch, ntiles;  // nch: channel chunks of CP per head
   int clamp_hi;
   float R;
   long long pos_bstride;  // elements; 0 when pos is batch-broadcast
   int meta_batched;       // 0 when the metadata is batch-broadcast
+  int ucap;               // backward: union positions per tile in dkv_part
 };
 
 // The launch grid: (image, tile) x (head group, channel slice).
@@ -518,7 +520,8 @@ struct Block {
   E *sq, *sg, *sk, *sv, *sp, *sdl;
   float *slg, *sdp, *so;  // logits and dP per (head, row, slot); O
   float *m_, *l_, *a_, *bl_, *dlb_, *pb_;
-  float *qpos, *upos, *acc;
+  float *qpos, *upos;
+  float* acc;  // backward: (warp, G, 6) rel-pos gradient sums
   float* wts;  // pe_kernel and pe_bias of the G heads: (G, 6)
   float *sbk, *sbv;  // blank_k, blank_v of the G heads when nch = 1
   int *stok, *ra, *rb;  // ra, rb: each row's slots [ra, rb) in the chunk
@@ -698,8 +701,9 @@ struct Block {
     for (int e = threadIdx.x; e < 6 * G; e += kThreads) {
       const int g = e / 6, f = e - g * 6;
       wts[e] = f < 5 ? P.pe_kernel[f * P.h + head(g)] : P.pe_bias[head(g)];
-      acc[e] = 0.f;
     }
+    for (int e = threadIdx.x; e < (BWD ? kWarps : 1) * 6 * G; e += kThreads)
+      acc[e] = 0.f;
     if (P.nnc <= kSmemNnc) {
       const int tn = kTile * P.nnc;  // ints, a multiple of 64
       for (int e = threadIdx.x; e < tn / 4; e += kThreads)

@@ -6,14 +6,19 @@
         [--blr LR] [--data-path P] [--accumulation-steps N] [--output DIR]
         [--tag T] [--device cuda|cpu] [--opts KEY VALUE ...]
 
-Builds the model from a seeded random init and measures throughput on one
-validation batch (50 warmup + 30 timed forwards, as the reference always
-does first). ``--throughput`` stops there; ``--eval`` validates and prints
-acc@1 / acc@5 / loss. Otherwise it trains: per epoch the train steps over
-the (synthetic) train split, a checkpoint under
-``<output>/<model name>/<tag>`` (auto-resumed from there unless
-``--resume`` names one), and a validation. Runs on ``cuda`` unless
-``--device cpu``; with no GPU it raises.
+Builds the model from a seeded random init, loads the checkpoint to
+resume from (``--resume``, else with ``TRAIN.AUTO_RESUME`` the newest under
+``<output>/<model name>/<tag>``) and measures throughput on one validation
+batch (50 warmup + 30 timed forwards, as the reference always does first).
+``--throughput`` stops there; ``--eval`` validates and prints acc@1 /
+acc@5 / loss. Otherwise it trains: per epoch the train steps over the
+(synthetic) train split, a checkpoint and a validation; a MaskFiner model
+follows its upsampling curriculum (the ratios anneal from 1.0 to the
+configured ones, quantised to 1/20, applied at the start of an epoch).
+Reference ``.pth`` weights (``.pth`` resume, ``MODEL.PRETRAINED``,
+``MODEL.AFF.PRETRAINED``) are not ported and raise, as does a missing
+checkpoint. Runs on ``cuda`` unless ``--device cpu``; with no GPU it
+raises.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ from typing import List, Optional
 import torch
 
 from . import resolve_device
-from .ckpt.io import auto_resume_helper, load_checkpoint, save_checkpoint
+from .ckpt.io import (auto_resume_helper, load_checkpoint,
+                      load_model_weights, save_checkpoint)
 from .config import get_config
 from .data.synthetic import (TrainLoader, build_train_dataset,
                              build_val_dataset, iterate_batches)
@@ -82,24 +88,45 @@ def validate(eval_step, dataset, batch_size: int, device) -> dict:
             "loss": sums["loss_sum"] / n, "count": sums["count"]}
 
 
-def train(config, model, device, val, logger) -> dict:
+def resume_path(config) -> Optional[str]:
+    """The checkpoint to start from, as JAX ``main.py:168-211`` picks it:
+    ``MODEL.RESUME``, else with ``TRAIN.AUTO_RESUME`` the newest under
+    ``OUTPUT``, else None. Raises on what the port cannot load: a
+    reference ``.pth``, ``MODEL.PRETRAINED`` or ``MODEL.AFF.PRETRAINED``
+    (ROADMAP A8), or a path that does not exist."""
+    for key, path in (("MODEL.PRETRAINED", config.MODEL.PRETRAINED),
+                      ("MODEL.AFF.PRETRAINED", config.MODEL.AFF.PRETRAINED)):
+        if path:
+            raise NotImplementedError(
+                f"{key} {path!r}: importing reference weights is not ported "
+                "yet (ROADMAP.md queue A item 8)")
+    resume = config.MODEL.RESUME
+    if not resume and config.TRAIN.AUTO_RESUME:
+        resume = auto_resume_helper(config.OUTPUT)
+    if not resume:
+        return None
+    if resume.endswith(".pth"):
+        raise NotImplementedError(
+            f"--resume {resume!r}: importing a reference .pth checkpoint is "
+            "not ported yet (ROADMAP.md queue A item 8)")
+    if not os.path.isfile(resume):
+        raise FileNotFoundError(f"checkpoint to resume from not found: "
+                                f"{resume}")
+    return resume
+
+
+def train(config, model, device, val, logger, resume=None) -> dict:
     """The training loop of the JAX package's ``main.py:275-401``: per epoch
-    the train steps, a checkpoint and a validation. Returns the last
-    epoch's numbers."""
+    the upsampling curriculum's ratios (MaskFiner), the train steps, a
+    checkpoint and a validation. Starts from the checkpoint ``resume``
+    when given. Returns the last epoch's numbers."""
     batch_size = config.DATA.BATCH_SIZE
     loader = TrainLoader(build_train_dataset(config), batch_size,
                          seed=config.SEED)
     state, schedule = create_train_state(config, model, max(len(loader), 1))
     start_epoch = config.TRAIN.START_EPOCH
     max_accuracy = 0.0
-    resume = config.MODEL.RESUME
-    if not resume and config.TRAIN.AUTO_RESUME:
-        resume = auto_resume_helper(config.OUTPUT)
     if resume:
-        if resume.endswith(".pth"):
-            raise NotImplementedError(
-                "importing a reference .pth checkpoint is not ported yet "
-                "(ROADMAP.md queue A item 8)")
         state, epoch, max_accuracy = load_checkpoint(resume, state)
         start_epoch = epoch + 1
         logger.info(f"=> resumed from {resume} (epoch {epoch})")
@@ -109,10 +136,30 @@ def train(config, model, device, val, logger) -> dict:
     train_step = make_train_step(config, state, schedule)
     eval_step = make_eval_step(config, model)
 
+    # the curriculum anneals from the configured (final) ratios, read once
+    final_ratios = (list(model.final_upsampling_ratios)
+                    if curriculum.applies_to(model) else None)
+    prev_ratios = None
+    cuda = device.type == "cuda"
+
     logger.info("Start training")
     start = time.time()
-    result = {"start_epoch": start_epoch}
+    result = {"start_epoch": start_epoch, "epochs": []}
     for epoch in range(start_epoch, config.TRAIN.EPOCHS):
+        if final_ratios is not None:
+            # JAX main.py:302-323: new ratios rebuild the steps; the port
+            # sets them on the live backbones, so parameters, BatchNorm
+            # statistics and the optimizer's state carry over
+            ratios = curriculum.epoch_upsample_ratios(
+                final_ratios, config.TRAIN.EPOCHS, epoch)
+            if ratios != prev_ratios:
+                logger.info(f"Upsampling ratios now {ratios}")
+                curriculum.set_upsample_ratios(model, ratios)
+                train_step = make_train_step(config, state, schedule)
+                eval_step = make_eval_step(config, model)
+                prev_ratios = ratios
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
         loader.set_epoch(epoch)
         meters = {k: AverageMeter() for k in ("loss", "grad_norm")}
         step_seconds, skipped = [], 0
@@ -142,10 +189,17 @@ def train(config, model, device, val, logger) -> dict:
         img_s = steps * batch_size / max(sum(step_seconds), 1e-12)
         img_s_after_first = ((steps - 1) * batch_size / sum(step_seconds[1:])
                              if steps > 1 else None)
+        peak = torch.cuda.max_memory_allocated(device) if cuda else None
         logger.info(
             f"EPOCH {epoch} training takes "
             f"{datetime.timedelta(seconds=int(time.time() - t0))}; "
-            f"{img_s:.1f} img/s over {steps} steps")
+            f"{img_s:.1f} img/s over {steps} steps"
+            + (f"; peak memory {peak} bytes" if cuda else ""))
+        result["epochs"].append(dict(
+            epoch=epoch, ratios=prev_ratios, steps=steps,
+            skipped_steps=skipped, img_s=img_s,
+            img_s_after_first=img_s_after_first, step_seconds=step_seconds,
+            peak_memory_bytes=peak))
         result.update(epoch=epoch, steps=steps, skipped_steps=skipped,
                       train_loss=meters["loss"].avg,
                       last_loss=meters["loss"].val,
@@ -200,11 +254,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if device.type == "cuda":
         print(f"device: {torch.cuda.get_device_name(device)}", flush=True)
     model = build_model(config, device)
-    if training and curriculum.applies_to(model):
-        raise NotImplementedError(
-            f"training {config.MODEL.TYPE} (its upsampling curriculum) is "
-            "not ported yet (ROADMAP.md queue A item A10b); --eval and "
-            "--throughput run it")
+    resume = resume_path(config)
+    if resume and not training:
+        epoch = load_model_weights(resume, model)
+        print(f"=> loaded {resume} (epoch {epoch})", flush=True)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{config.MODEL.NAME}: {n_params} params, "
           f"{config.TPU.COMPUTE_DTYPE}, batch {config.DATA.BATCH_SIZE}",
@@ -225,7 +278,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         logger = create_logger(config.OUTPUT, 0, config.MODEL.NAME)
         with open(os.path.join(config.OUTPUT, "config.json"), "w") as f:
             json.dump(config.to_dict(), f, indent=2)
-        result["train"] = train(config, model, device, val, logger)
+        result["train"] = train(config, model, device, val, logger, resume)
         print(json.dumps(result), flush=True)
         return result
 

@@ -26,6 +26,7 @@ from ..ops.sfc import grid_tensors, space_filling_cluster
 from .layers import (
     ClusterMerging,
     ClusterTransformerBlock,
+    Dropout,
     LayerNormFp32,
     Linear,
     PatchEmbed,
@@ -130,7 +131,7 @@ class AutoFocusFormer(nn.Module):
         self.compute_dtype = compute_dtype
         R = img_size // 4 - 1  # aff_transformer.py:20
         self.patch_embed = PatchEmbed(embed_dim[0], patch_norm, compute_dtype)
-        self.pos_drop = nn.Dropout(drop_rate)
+        self.pos_drop = Dropout(drop_rate)
         num_layers = len(depths)
         # stochastic depth rises linearly over the blocks (aff.py:335)
         dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()

@@ -29,7 +29,8 @@ from ..ops.clusten import wf_contract
 from ..ops.knn import nearest_other_distance
 
 __all__ = [
-    "Linear", "LayerNormFp32", "rel_pos_features", "DropPath", "Mlp",
+    "Linear", "LayerNormFp32", "rel_pos_features", "Dropout", "DropPath",
+    "Mlp",
     "ClusterAttention", "ClusterTransformerBlock", "ClusterMerging",
     "PatchEmbed", "batch_norm_train",
 ]
@@ -80,6 +81,31 @@ def rel_pos_features(rel_pos: torch.Tensor, rel_pos_width: int):
     return offset_features(rel_pos[..., 0] - R, rel_pos[..., 1] - R)
 
 
+class Dropout(nn.Module):
+    """Element-wise dropout (flax ``nn.Dropout``): in training mode each
+    element is kept with probability ``1 - p`` and scaled by ``1 / (1 -
+    p)``, else zeroed; at ``p = 1`` everything is zeroed.
+
+    The mask is drawn on the input's device from ``generator`` (a
+    ``torch.Generator`` on that device, set by the trainer) or, when it is
+    None, from torch's global generator.
+    """
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if self.p == 0.0 or not self.training:
+            return x
+        if self.p >= 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.p
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth (timm ``DropPath``, JAX package
     ``layers.py:197-210``): in training mode each sample is kept with
@@ -113,7 +139,7 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = Linear(dim, hidden, compute_dtype)
         self.fc2 = Linear(hidden, out, compute_dtype)
-        self.drop = nn.Dropout(drop)
+        self.drop = Dropout(drop)
 
     def forward(self, x):
         return self.drop(self.fc2(self.drop(F.gelu(self.fc1(x)))))
@@ -124,7 +150,7 @@ class ClusterAttention(nn.Module):
     or, in global mode, dense attention over all tokens (plain torch).
 
     ``attn_drop`` drops attention probabilities in training mode: in the
-    global mode with ``nn.Dropout``; in the local mode the fused kernels do
+    global mode with :class:`Dropout`; in the local mode the fused kernels do
     not port it yet and raise (ROADMAP.md queue B item 7).
 
     ``clamp_width`` (MixRes: the rel-pos table width, 0 for AFF) clamps the
@@ -137,8 +163,8 @@ class ClusterAttention(nn.Module):
                  proj_drop: float = 0.0, clamp_width: int = 0):
         super().__init__()
         self.num_heads = num_heads
-        self.attn_drop = nn.Dropout(attn_drop)
-        self.proj_drop = nn.Dropout(proj_drop)
+        self.attn_drop = Dropout(attn_drop)
+        self.proj_drop = Dropout(proj_drop)
         self.rel_pos_width = rel_pos_width
         self.clamp_width = clamp_width
         self.compute_dtype = compute_dtype

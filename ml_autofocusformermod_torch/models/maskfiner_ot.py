@@ -9,7 +9,7 @@ oracle placeholder (:func:`random_upsampling_mask`). Head: LayerNorm and a
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -25,12 +25,20 @@ def random_upsampling_mask(model: nn.Module, j: int, b: int, n: int,
                            device: torch.device) -> torch.Tensor:
     """The random oracle scores (b, n) for the mask after backbone ``j``.
 
-    Drawn on the CPU from a ``torch.Generator`` seeded with
-    ``model.mask_seed`` and ``j`` and moved to ``device``, so that the GPU
-    and CPU forwards of one model split the same tokens; kept on the model
-    per (j, b, n, device), so every eval forward uses the same masks. The
-    stream is the port's own, not JAX's threefry: tests replay the JAX
-    package's masks by patching this module-level function."""
+    In training mode (``model.training``) a fresh draw per call, from
+    ``model.upsample_generator`` (a CPU ``torch.Generator`` that the
+    trainer owns; torch's global CPU generator when it is None), as the
+    JAX package draws from its "upsample" rng stream in training. At eval
+    a fixed mask: drawn from a ``torch.Generator`` seeded with
+    ``model.mask_seed`` and ``j`` and kept on the model per (j, b, n,
+    device), so every eval forward uses the same masks. Both are drawn on
+    the CPU and moved to ``device``, so that the GPU and CPU forwards of
+    one model (and one generator state) split the same tokens. The stream
+    is the port's own, not JAX's threefry: tests replay the JAX package's
+    masks by patching this module-level function."""
+    if model.training:
+        return torch.randn((b, n), generator=model.upsample_generator).to(
+            device)
     key = (j, b, n, str(device))
     masks = model.upsampling_masks
     if key not in masks:
@@ -49,6 +57,7 @@ class OracleTeacherBackbone(nn.Module):
         self.n_scales = n_scales
         self.mask_seed = int(mask_seed)
         self.upsampling_masks: Dict[tuple, torch.Tensor] = {}
+        self.upsample_generator: Optional[torch.Generator] = None
         tot = backbone_dims[-1] * n_scales
         self.head_norm = LayerNormFp32(tot)
         self.head = MLP(tot, tot, num_classes, 3, compute_dtype)

@@ -95,8 +95,9 @@ def color_change_upsampling_mask(images: torch.Tensor, pos: torch.Tensor,
 def random_upsampling_mask(model: nn.Module, j: int, b: int, n: int,
                            device: torch.device) -> torch.Tensor:
     """The random oracle scores (b, n) after backbone ``j``
-    (:func:`maskfiner_ot.random_upsampling_mask`'s stream). Module-level so
-    tests can replay the JAX package's masks."""
+    (:func:`maskfiner_ot.random_upsampling_mask`'s streams: fresh in
+    training, fixed at eval). Module-level so tests can replay the JAX
+    package's masks."""
     return _draw_mask(model, j, b, n, device)
 
 
@@ -115,6 +116,7 @@ class UpDownBackbone(nn.Module):
         self.aux_loss = aux_loss
         self.mask_seed = int(mask_seed)
         self.upsampling_masks: Dict[tuple, torch.Tensor] = {}
+        self.upsample_generator: Optional[torch.Generator] = None
         if aux_loss:
             # one head per feature, on the width of its last level
             width = {f: d for bb, d in zip(self.backbones, backbone_dims)

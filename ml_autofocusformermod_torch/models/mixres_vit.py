@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import DropPath, LayerNormFp32, Linear
+from .layers import Dropout, DropPath, LayerNormFp32, Linear
 from .mixres_common import (
     OverlapPatchEmbedding,
     grid_positions,
@@ -52,7 +52,7 @@ class FeedForward(nn.Module):
         self.fc1 = Linear(dim, hidden_dim, compute_dtype)
         self.dwconv = DWConv(hidden_dim, compute_dtype) if dw_conv else None
         self.fc2 = Linear(hidden_dim, out_dim or dim, compute_dtype)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x, h: int, w: int):
         x = self.fc1(x)
@@ -72,7 +72,7 @@ class Attention(nn.Module):
         self.compute_dtype = compute_dtype
         self.qkv = Linear(dim, 3 * dim, compute_dtype)
         self.proj = Linear(dim, dim, compute_dtype)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x):
         b, n, c = x.shape

@@ -32,7 +32,8 @@ from .cluster_gather import cluster_token_index, gather_clusters
 __all__ = ["fused_cluster_attention", "cluster_attention_reference",
            "cluster_attention_backward",
            "cluster_attention_backward_reference", "offset_features",
-           "TILE", "TileMeta", "tile_metadata", "constant_tile_metadata"]
+           "TILE", "TileMeta", "tile_metadata", "constant_tile_metadata",
+           "union_rows"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64  # query rows per kernel tile, csrc/cluster_attention_tile.cuh::kTile
@@ -291,6 +292,19 @@ def _meta_args(meta, ncc):
     return meta, int(B == b and b > 1)
 
 
+_UNION_ROWS = WeakIdKeyDictionary()
+
+
+def union_rows(meta, cs):
+    """Rows per tile of the backward's dk/dv partials: ``cs`` times the
+    largest union of ``meta``. Read from the device once per metadata (a
+    host sync) and kept while its ``ucount`` lives."""
+    if meta.ucount not in _UNION_ROWS:
+        _UNION_ROWS[meta.ucount] = int(meta.ucount.max()) if \
+            meta.ucount.numel() else 0
+    return _UNION_ROWS[meta.ucount] * cs
+
+
 def _launch(fn, name, *args):
     rc = fn(*args)
     if rc != 0:
@@ -339,7 +353,11 @@ def cluster_attention_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
     On a CUDA tensor this launches ``csrc/cluster_attention_bwd.cu`` (and
     adds one to ``cluster_attention_backward.launches``), with ``meta``
     the :class:`TileMeta` of ``ncc`` (computed when None); on a CPU tensor
-    it runs :func:`cluster_attention_backward_reference`.
+    it runs :func:`cluster_attention_backward_reference`. The CUDA path
+    adds no float atomics: a repeated call gives the same bits. Its
+    scratch is the tiles' dk/dv partials, ``b * ceil(n / TILE) *``
+    :func:`union_rows` ``* 2c`` f32, and one row of ``6h + 2c`` f32
+    parameter sums per (image, tile), summed here in a fixed order.
     """
     if q.device.type == "cpu":
         return cluster_attention_backward_reference(
@@ -358,26 +376,31 @@ def cluster_attention_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
     c_ = c // h
     meta, batched = _meta_args(meta, ncc)
     params = _small_params(q, h, pe_kernel, pe_bias, blank_k, blank_v)
+    nt = -(-n // TILE)
+    ucap = union_rows(meta, cs)
+    f32 = dict(dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
-    dkv = torch.zeros((b, n, 2 * c), dtype=torch.float32, device=q.device)
-    dparams = torch.zeros(6 * h + 2 * c, dtype=torch.float32, device=q.device)
+    dkv = torch.empty_like(kv)
+    part = torch.empty(b * nt * ucap * 2 * c, **f32)
+    rows = torch.empty((b * nt, 6 * h + 2 * c), **f32)
     fn = _build.library("cluster_attention_bwd").cluster_attention_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
-                   + [ctypes.c_longlong] + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch(fn, "cluster_attention_bwd", q.data_ptr(), kv.data_ptr(),
                 pos.data_ptr(), *(t.data_ptr() for t in meta),
                 *(t.data_ptr() for t in params), g_out.data_ptr(),
-                dq.data_ptr(), dkv.data_ptr(), dparams.data_ptr(), b, n, h,
-                c_, ncc.shape[2], cs, int(rel_width), int(clamp_width),
-                pos.stride(0), batched, _DTYPE_CODE[q.dtype], stream)
+                dq.data_ptr(), dkv.data_ptr(), part.data_ptr(),
+                rows.data_ptr(), b, n, h, c_, ncc.shape[2], cs,
+                int(rel_width), int(clamp_width), pos.stride(0), batched,
+                ucap, _DTYPE_CODE[q.dtype], stream)
     cluster_attention_backward.launches += 1
     d_pe_kernel, d_pe_bias, d_blank_k, d_blank_v = torch.split(
-        dparams, [5 * h, h, c_ * h, h * c_])
-    return (dq, dkv.to(kv.dtype),
+        rows.sum(0), [5 * h, h, c_ * h, h * c_])
+    return (dq, dkv,
             d_pe_kernel.reshape(5, h).to(pe_kernel.dtype),
             d_pe_bias.to(pe_bias.dtype),
             d_blank_k.reshape(c_, h).to(blank_k.dtype),

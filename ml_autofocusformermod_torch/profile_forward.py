@@ -33,8 +33,9 @@ import torch
 from .config import load_config
 from .data.synthetic import build_val_dataset, iterate_batches
 from .models.build import build_model
-from .train.losses import smooth_one_hot, soft_target_cross_entropy
-from .train.trainer import apply_gradients, create_train_state, make_train_step
+from .train.losses import smooth_one_hot
+from .train.trainer import (apply_gradients, create_train_state,
+                            make_train_step, model_loss)
 
 GROUPS = [  # first match wins
     ("cluster_attention_fwd", r"cluster_attention_fwd"),
@@ -78,14 +79,15 @@ def _train_split(config, state, images, labels, steps: int = 5) -> dict:
             p.grad = None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = soft_target_cross_entropy(model(images), target)
+        loss = model_loss(model(images), target)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         loss.backward()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        apply_gradients(state, {k: p.grad for k, p in params.items()}, accum,
-                        config.TRAIN.EMA_DECAY)
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for k, p in params.items()}
+        apply_gradients(state, grads, accum, config.TRAIN.EMA_DECAY)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         for k, a, b in (("forward", t0, t1), ("backward", t1, t2),

@@ -3,7 +3,7 @@ the timers and inputs that ``chip_smoke.py`` uses for its kernel_time
 lines.
 
     python3 -m ml_autofocusformermod_torch.time_kernels [--merge]
-        [--cfg PRESET] [--dtype bfloat16|float32] [LABEL]
+        [--cfg PRESET [--train]] [--dtype bfloat16|float32] [LABEL]
 
 times this checkout: the attention kernels at stages 1-3 (each with its
 stage's tile metadata made beforehand, as the model calls them), or with
@@ -11,7 +11,10 @@ stage's tile metadata made beforehand, as the model calls them), or with
 inverse index inside, as the model calls it), or with ``--cfg`` and a
 MaskFiner preset (``maskfiner_up_down_mini.yaml``, ...) the attention
 forward at each token count of that model's forward, on the inputs a
-forward of the model (random weights, synthetic images) gave the kernel. Run as a file from the root
+forward of the model (random weights, synthetic images) gave the kernel
+(with ``--train`` the attention forward and backward at each token count
+of a training step, at the curriculum's first ratios, all 1.0, and at the
+final ones). Run as a file from the root
 of another checkout, ``python3 <this checkout>/ml_autofocusformermod_torch/
 time_kernels.py [--merge] LABEL``, it times that checkout's kernels, so
 that several variants (or the parent and the change) can be timed on one
@@ -161,14 +164,27 @@ ATTN_ARGS = ["q", "kv", "ncc", "pos", "pe_kernel", "pe_bias", "blank_k",
              "blank_v"]
 
 
-def captured_attention(preset, b, dtype_name, dev, seed=0):
+# the upsampling ratios of the curriculum's first epoch, per MaskFiner
+# preset: every token splits
+RATIO_ONE = {"maskfiner_up_down_mini.yaml": [0.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0],
+             "maskfiner_oracle_teacher.yaml": [0.0, 1.0, 1.0, 1.0]}
+
+
+def captured_attention(preset, b, dtype_name, dev, seed=0, train=False,
+                       ratios=None):
     """The attention kernel's inputs in a forward of the model of
     ``preset`` (a file of ``configs/``) built from ``seed`` on ``b``
     synthetic validation images: per distinct token count n, in the order
     of first call, a dict with ``label`` (``n<n>``), ``n``, ``heads``,
     ``c``, ``cs``, ``rel_width``, ``clamp``, ``per_pass`` (the calls at
     this n in one forward), ``args`` (the eight inputs by name, as the
-    kernel gets them) and ``meta`` (the stage's tile metadata)."""
+    kernel gets them) and ``meta`` (the stage's tile metadata).
+
+    ``train``: a training step's forward and backward instead (the
+    trainer's generators, the smoothed-label loss), and each row also has
+    ``g``, the output gradient the first call at that n got in the
+    backward. ``ratios`` overrides the configured upsampling ratios (e.g.
+    ``RATIO_ONE[preset]``, the curriculum's first epoch)."""
     import torch
 
     from ml_autofocusformermod_torch.config import load_config
@@ -176,46 +192,81 @@ def captured_attention(preset, b, dtype_name, dev, seed=0):
         build_val_dataset, iterate_batches)
     from ml_autofocusformermod_torch.models import layers
     from ml_autofocusformermod_torch.models.build import build_model
+    from ml_autofocusformermod_torch.train.losses import (
+        smooth_one_hot, soft_target_cross_entropy)
+    from ml_autofocusformermod_torch.train.trainer import create_train_state
 
     here = os.path.dirname(os.path.abspath(__file__))
     cfg = load_config(os.path.join(here, "configs", preset), opts=[
         "TPU.COMPUTE_DTYPE", dtype_name, "DATA.DATA_PATH", "no_dataset"])
-    model = build_model(cfg, dev, seed=seed)
-    images, _ = next(iterate_batches(build_val_dataset(cfg), b))
+    model = build_model(cfg, dev, seed=seed, upscale_ratios=ratios)
+    images, labels = next(iterate_batches(build_val_dataset(cfg), b))
     seen = {}
     real = layers.fused_cluster_attention
 
     def capture(*args, meta=None, **kw):
         q, h, cs, rel_width, clamp = args[0], *args[8:12]
         n = q.shape[1]
-        if n not in seen:
+        first = n not in seen
+        if first:
             inputs = dict(zip(ATTN_ARGS, (t.detach().clone()
                                           for t in args[:8])))
             seen[n] = dict(label=f"n{n}", n=n, heads=h, c=q.shape[2],
                            cs=cs, rel_width=rel_width, clamp=clamp,
                            per_pass=0, args=inputs, meta=meta)
         seen[n]["per_pass"] += 1
-        return real(*args, meta=meta, **kw)
+        out = real(*args, meta=meta, **kw)
+        if first and train:
+            row = seen[n]
+            out.register_hook(
+                lambda g: row.__setitem__("g", g.detach().clone()))
+        return out
 
     layers.fused_cluster_attention = capture
     try:
-        with torch.no_grad():
-            model(images.to(dev))
+        if train:
+            create_train_state(cfg, model, 1, seed=seed)
+            model.train()
+            target = smooth_one_hot(labels.to(dev), cfg.MODEL.NUM_CLASSES,
+                                    cfg.MODEL.LABEL_SMOOTHING)
+            outputs = model(images.to(dev))
+            if not isinstance(outputs, (list, tuple)):
+                outputs = [outputs]
+            # the trainer's loss (trainer.py::model_loss), written out so
+            # that the timer also runs on checkouts without it
+            loss = sum(soft_target_cross_entropy(o, target)
+                       for o in outputs) / len(outputs)
+            loss.backward()
+        else:
+            with torch.no_grad():
+                model(images.to(dev))
     finally:
         layers.fused_cluster_attention = real
     return list(seen.values())
 
 
-def time_maskfiner(out, preset, dev, dtype):
+def time_maskfiner(out, preset, dev, dtype, train=False):
     from ml_autofocusformermod_torch.ops.cluster_attention import (
-        fused_cluster_attention)
+        cluster_attention_backward, fused_cluster_attention)
 
-    for row in captured_attention(preset, B, str(dtype).split(".")[1], dev):
-        args = [row["args"][k] for k in ATTN_ARGS]
-        geo = (row["heads"], row["cs"], row["rel_width"], row["clamp"])
-        fn = lambda: fused_cluster_attention(*args, *geo, meta=row["meta"])
-        out[f"{row['label']}_fwd_ms"] = time_ms(fn)
-        out[f"{row['label']}_fwd_device_ms"] = device_ms(fn)
+    dtype_name = str(dtype).split(".")[1]
+    # a training step's inputs at the curriculum's first ratios and at the
+    # final ones, or an eval forward's
+    runs = ([RATIO_ONE[preset], None] if train else [None])
+    for ratios in runs:
+        for row in captured_attention(preset, B, dtype_name, dev,
+                                      train=train, ratios=ratios):
+            args = [row["args"][k] for k in ATTN_ARGS]
+            geo = (row["heads"], row["cs"], row["rel_width"], row["clamp"])
+            meta = row["meta"]
+            fns = {"fwd": lambda: fused_cluster_attention(*args, *geo,
+                                                          meta=meta)}
+            if train:
+                fns["bwd"] = lambda: cluster_attention_backward(
+                    *args, row["g"], *geo, meta=meta)
+            for d, fn in fns.items():
+                out[f"{row['label']}_{d}_ms"] = time_ms(fn)
+                out[f"{row['label']}_{d}_device_ms"] = device_ms(fn)
 
 
 def time_attention(out, gen, dev, dtype):
@@ -266,6 +317,10 @@ def main() -> int:
     ap.add_argument("--cfg", default=None,
                     help="a MaskFiner preset of configs/: time the "
                          "attention at that model's shapes")
+    ap.add_argument("--train", action="store_true",
+                    help="with --cfg: the inputs of a training step at the "
+                         "curriculum's first and final ratios, forward and "
+                         "backward")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
     args = ap.parse_args()
@@ -275,7 +330,9 @@ def main() -> int:
     dtype = getattr(torch, args.dtype)
     if args.cfg:
         out["cfg"] = args.cfg
-        time_maskfiner(out, os.path.basename(args.cfg), dev, dtype)
+        out["train"] = args.train
+        time_maskfiner(out, os.path.basename(args.cfg), dev, dtype,
+                       args.train)
     else:
         timer = time_merge if args.merge else time_attention
         timer(out, gen, dev, dtype)

@@ -6,14 +6,18 @@ final value linearly over training (``main.py:231-235,472-476``) and
 crashes for ``aff`` models, which have none. Here the curriculum applies
 only to models exposing ``final_upsampling_ratios``; AFF has none, so the
 training loop skips it. Ratios are quantized so that the number of distinct
-token counts stays bounded.
+token counts stays bounded. :func:`set_upsample_ratios` applies an epoch's
+ratios to the live backbones, so that parameters, BatchNorm statistics and
+the optimizer's state carry over (the JAX package rebuilds its model from
+the config; the parameter shapes do not depend on the ratios).
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence
 
-__all__ = ["get_upsample_ratio", "epoch_upsample_ratios", "applies_to"]
+__all__ = ["get_upsample_ratio", "epoch_upsample_ratios", "applies_to",
+           "set_upsample_ratios"]
 
 
 def get_upsample_ratio(final_ratio: float, n_epochs: int,
@@ -47,3 +51,17 @@ def epoch_upsample_ratios(final_ratios: Sequence[float], n_epochs: int,
 def applies_to(model) -> bool:
     """True for models with an upsampling curriculum (MaskFiner wrappers)."""
     return hasattr(model, "final_upsampling_ratios")
+
+
+def set_upsample_ratios(model, ratios: Sequence[float]) -> None:
+    """Set each backbone's ``upscale_ratio`` of a MaskFiner wrapper. A
+    level that does not upsample (ratio 0) must stay at 0: its split
+    parameters do not exist."""
+    backbones = list(model.backbones)
+    if len(ratios) != len(backbones) or any(
+            (bb.upscale_ratio == 0.0) != (r == 0.0)
+            for bb, r in zip(backbones, ratios)):
+        raise ValueError(f"ratios {list(ratios)} do not fit the levels' "
+                         f"{[bb.upscale_ratio for bb in backbones]}")
+    for bb, r in zip(backbones, ratios):
+        bb.upscale_ratio = float(r)

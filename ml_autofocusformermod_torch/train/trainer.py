@@ -21,13 +21,14 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models.layers import DropPath
+from ..models.layers import Dropout, DropPath
 from .losses import mixup_cutmix, smooth_one_hot, soft_target_cross_entropy
 from .optim import Optimizer, build_optimizer, global_norm
 from .schedulers import build_scheduler
 
 __all__ = ["TrainState", "create_train_state", "apply_gradients",
-           "make_train_step", "make_eval_step", "throughput", "ema_tensors"]
+           "model_loss", "make_train_step", "make_eval_step", "throughput",
+           "ema_tensors"]
 
 
 def ema_tensors(model) -> Dict[str, torch.Tensor]:
@@ -42,12 +43,15 @@ def ema_tensors(model) -> Dict[str, torch.Tensor]:
 @dataclass
 class TrainState:
     """What a train step reads and updates. ``drop_generator`` (on the
-    model's device) drives DropPath; ``mix_generator`` (CPU) drives mixup."""
+    model's device) drives Dropout and DropPath; ``mix_generator`` (CPU)
+    drives mixup; ``upsample_generator`` (CPU) draws a MaskFiner model's
+    upsampling masks in training."""
 
     model: torch.nn.Module
     optimizer: Optimizer
     drop_generator: torch.Generator
     mix_generator: torch.Generator
+    upsample_generator: torch.Generator
     step: int = 0
     ema: Optional[Dict[str, torch.Tensor]] = field(default=None)
 
@@ -57,20 +61,24 @@ def create_train_state(config, model, n_steps_per_epoch: int = 1000,
                        ) -> Tuple[TrainState, Callable]:
     """``(state, schedule)`` for ``model``: the optimizer of
     ``config.TRAIN``, the EMA copy when ``TRAIN.USE_EMA``, and generators
-    seeded from ``seed`` (default ``config.SEED``)."""
+    seeded from ``seed`` (default ``config.SEED``), handed to every
+    Dropout and DropPath and to a MaskFiner model's upsampling masks."""
     seed = config.SEED if seed is None else seed
     schedule = build_scheduler(config, n_steps_per_epoch)
     optimizer = build_optimizer(config, schedule, model)
     device = next(model.parameters()).device
     drop_gen = torch.Generator(device=device).manual_seed(seed)
     for mod in model.modules():
-        if isinstance(mod, DropPath):
+        if isinstance(mod, (Dropout, DropPath)):
             mod.generator = drop_gen
+    up_gen = torch.Generator().manual_seed(seed + 1)
+    if hasattr(model, "upsample_generator"):
+        model.upsample_generator = up_gen
     ema = None
     if config.TRAIN.USE_EMA:
         ema = {k: t.detach().clone() for k, t in ema_tensors(model).items()}
     state = TrainState(model, optimizer, drop_gen,
-                       torch.Generator().manual_seed(seed), ema=ema)
+                       torch.Generator().manual_seed(seed), up_gen, ema=ema)
     return state, schedule
 
 
@@ -91,6 +99,15 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor],
                 e.copy_(e * ema_decay + t.to(e.dtype) * (1.0 - ema_decay))
     state.step += 1
     return grad_norm, finite
+
+
+def model_loss(outputs, target: torch.Tensor) -> torch.Tensor:
+    """Soft-target CE of the logits, or the mean of it over an aux-head
+    model's list of logits (JAX ``trainer.py:101-105``)."""
+    if isinstance(outputs, (list, tuple)):
+        losses = [soft_target_cross_entropy(o, target) for o in outputs]
+        return sum(losses) / len(losses)
+    return soft_target_cross_entropy(outputs, target)
 
 
 def make_train_step(config, state: TrainState, schedule: Callable) -> Callable:
@@ -117,12 +134,7 @@ def make_train_step(config, state: TrainState, schedule: Callable) -> Callable:
             target = smooth_one_hot(labels, num_classes, smoothing)
         for p in params.values():
             p.grad = None
-        outputs = model(images)
-        if isinstance(outputs, (list, tuple)):
-            losses = [soft_target_cross_entropy(o, target) for o in outputs]
-            loss = sum(losses) / len(losses)
-        else:
-            loss = soft_target_cross_entropy(outputs, target)
+        loss = model_loss(model(images), target)
         loss.backward()
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in params.items()}

@@ -117,22 +117,12 @@ def test_cuda_entry_points_refuse_without_gpu():
         build_model(load_config(os.path.join(PORT_CFG, "aff_mini.yaml")))
 
 
-def test_maskfiner_is_not_ported_yet(tmp_path):
-    """MaskFiner inference is ported; its training (the upsampling
-    curriculum) is not: ``main`` refuses it before any step, and an
-    unknown model type still raises."""
+def test_unknown_model_type_raises():
+    """An unknown ``MODEL.TYPE`` raises. (MaskFiner training, which this
+    test once checked was refused, runs since ROADMAP A10b:
+    ``test_torch_maskfiner_train.py::
+    test_main_trains_maskfiner_through_the_curriculum_on_cpu``.)"""
     c = load_config(os.path.join(PORT_CFG, "aff_mini.yaml"),
                     opts=["MODEL.TYPE", "nosuchmodel"])
     with pytest.raises(NotImplementedError, match="nosuchmodel"):
         build_model(c, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        port_main.main([
-            "--cfg", os.path.join(PORT_CFG, "maskfiner_up_down_mini.yaml"),
-            "--device", "cpu", "--batch-size", "2", "--epochs", "1",
-            "--data-path", str(tmp_path / "no_dataset"),
-            "--output", str(tmp_path / "out"),
-            "--opts", "MODEL.NUM_CLASSES", "10", "DATA.IMG_SIZE", "64",
-            "TPU.COMPUTE_DTYPE", "float32",
-            "MODEL.MR.EMBED_DIM", "[32, 24, 16, 8, 16, 24, 32]",
-            "MODEL.MR.DEPTHS", "[1, 1, 1, 1, 1, 1, 1]",
-            "MODEL.MR.NUM_HEADS", "[2, 2, 2, 2, 2, 2, 2]"])

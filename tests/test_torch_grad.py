@@ -512,3 +512,28 @@ def test_merge_backward_is_bitwise_reproducible_on_card(cuda_device, dtype):
     second = cluster_merge_backward(w, f, ncc, a["cs"], g)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["random_ncc", "m760_repeats"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_is_bitwise_reproducible_on_card(cuda_device,
+                                                            dtype, name):
+    """The attention backward sums dk/dv over a tile's queries, the tiles'
+    partials in ascending tile order and the parameter gradients in a
+    fixed order, with no atomics: two runs on the same inputs give the
+    same bits for every output (ROADMAP C6). Random ncc (unions over
+    several chunks, most clusters named by every tile) and repeated
+    clusters, at b = 8."""
+    a, h, cs, R, clamp = _stress_case(name, 16)
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in a.items()}
+    for k in ("q", "kv", "g"):
+        t[k] = t[k].to(dtype)
+    t = {k: (v.expand(8, *v.shape[1:]).contiguous() if v.dim() == 3 else v)
+         for k, v in t.items()}
+    args = [t[k] for k in ATTN_ARGS]
+    first = cluster_attention_backward(*args, t["g"], h, cs, R, clamp)
+    second = cluster_attention_backward(*args, t["g"], h, cs, R, clamp)
+    torch.cuda.synchronize()
+    for gname, x, y in zip(ATTN_GRADS, first, second):
+        assert torch.equal(x, y), gname

@@ -171,3 +171,69 @@ def test_model_makes_the_metadata_once_per_stage():
         before = tile_metadata.calls
         model(x)
     assert tile_metadata.calls == before + 2
+
+
+# ------------------------------ the backward's deterministic dk/dv sums ----
+
+def _owner_order_dkv(a, rel_width):
+    """dkv summed as the CUDA backward sums it, with no atomics: each tile
+    adds its rows' slot terms into one row per union position (the tile
+    partials, ``union_rows`` rows per tile), and each cluster's rows are
+    the sum of the partials of the tiles whose sorted union names it
+    (found by a binary search), in ascending tile order."""
+    from ml_autofocusformermod_torch.ops.cluster_attention import (
+        _softmax_parts, union_rows,
+    )
+    from test_torch_grad import CS, H
+
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    b, n, c = t["q"].shape
+    c_ = c // H
+    qh, _, vg, _, p, pb = _softmax_parts(
+        t["q"], t["kv"], t["ncc"], t["pos"], t["pe_kernel"], t["pe_bias"],
+        t["blank_k"], H, CS, rel_width, 0)
+    goh = t["g"].reshape(b, n, H, c_).permute(0, 2, 1, 3)
+    dp = torch.einsum("bhic,bhimc->bhim", goh, vg)
+    dpb = torch.einsum("bhic,hc->bhi", goh, t["blank_v"])[..., None]
+    dl = p * (dp - ((dp * p).sum(-1, keepdim=True) + dpb * pb))
+    terms = torch.stack([qh[:, :, :, None] * dl[..., None],
+                         p[..., None] * goh[:, :, :, None]], dim=-2)
+    terms = terms.permute(0, 2, 3, 1, 4, 5).reshape(b, n, -1, 2 * c)
+    meta = tile_metadata(t["ncc"])
+    nt, ucap, nnc = -(-n // TILE), union_rows(meta, CS), t["ncc"].shape[2]
+    part = torch.zeros(b, nt, ucap, 2 * c)
+    for bi in range(b):
+        for tile in range(nt):
+            union = meta.ucl[bi, tile, :meta.ucount[bi, tile]].long()
+            for i in range(tile * TILE, min(n, (tile + 1) * TILE)):
+                for j in range(nnc):
+                    cl = int(t["ncc"][bi, i, j])
+                    u = int(torch.searchsorted(union, cl))
+                    for r in range(min(CS, n - cl * CS)):
+                        part[bi, tile, u * CS + r] += terms[bi, i, j * CS + r]
+    dkv = torch.zeros(b, n, 2 * c)
+    for bi in range(b):
+        for cl in range(-(-n // CS)):
+            rows = min(CS, n - cl * CS)
+            for tile in range(nt):  # ascending, as the owner block sums
+                union = meta.ucl[bi, tile, :meta.ucount[bi, tile]].long()
+                u = int(torch.searchsorted(union, cl))
+                if u < len(union) and int(union[u]) == cl:
+                    dkv[bi, cl * CS:cl * CS + rows] += \
+                        part[bi, tile, u * CS:u * CS + rows]
+    return dkv.numpy(), meta, ucap
+
+
+@pytest.mark.parametrize("n,nnc,hw", [(196, 6, 28), (100, 4, 14)])
+def test_owner_order_dkv_matches_jax(n, nnc, hw):
+    """The CUDA backward's two-pass dk/dv sum, emulated in plain torch,
+    against ``jax.vjp`` of the JAX attention (padded last cluster
+    included); and the partials' rows per tile are the largest union's."""
+    from test_torch_grad import _assert_grads, _attention_case, \
+        _jax_attention_vjp
+
+    a = _attention_case(np.random.default_rng(n), 2, n, nnc, hw)
+    dkv, meta, ucap = _owner_order_dkv(a, hw - 1)
+    assert ucap == int(meta.ucount.max()) * 8
+    ref = _jax_attention_vjp(a, hw - 1)
+    _assert_grads([dkv], [ref[1]], ["kv"])

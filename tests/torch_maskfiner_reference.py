@@ -4,10 +4,15 @@
         python tests/torch_maskfiner_reference.py OUT.npz CASE [CASE ...]
 
 Runs each case under ``jax.jit`` on random weights: a JAX MixResNeighbour
-level (a name of ``LEVELS``) or a tiny Oracle-Teacher or Up-Down model of
-``tests/test_maskfiner.py::tiny_mr`` (a name of ``MODELS``), and writes the
-weights, inputs, upsampling masks and outputs to one ``.npz`` (keys
-``case/params/...``, ``case/in/...``, ``case/mask/j``, ``case/out/...``).
+level (a name of ``LEVELS``), a tiny Oracle-Teacher or Up-Down model of
+``tests/test_maskfiner.py::tiny_mr`` (a name of ``MODELS``), or one
+training-mode loss and gradient of such a model (a name of ``TRAIN``:
+``jax.value_and_grad`` with the "upsample" and "dropout" rng streams and
+mutable batch statistics, as the JAX ``train/trainer.py`` takes it), and
+writes the weights, inputs, upsampling masks and outputs to one ``.npz``
+(keys ``case/params/...``, ``case/batch_stats/...``, ``case/in/...``,
+``case/mask/j``, ``case/out/...``, ``case/grad/...``,
+``case/new_stats/...``).
 
 It runs as a process of its own because of the flag: XLA's CPU backend
 otherwise contracts ``a * b + c`` into one fused multiply-add, and the
@@ -16,9 +21,10 @@ differently from the same function run op by op (eager JAX, and the port on
 either device), which reorders tokens whose keys nearly tie. Optimisation
 level 0 keeps every product and sum rounded on its own.
 
-The models draw their masks from JAX's fixed-key fallback
-(``maskfiner_ot._upsample_rng``); this script records each mask as the
-jitted forward made it, so the tests can replay it into the port.
+The models draw their masks from JAX's fixed-key fallback at eval and from
+the "upsample" stream in training (``maskfiner_ot._upsample_rng``); this
+script records each mask as the jitted forward made it, so the tests can
+replay it into the port.
 """
 
 import os
@@ -50,6 +56,26 @@ MODELS = {
     "ud": ("maskfiner_up_down_mini.yaml", {}),
     "ud_aux": ("maskfiner_up_down_mini.yaml", {"MODEL.MR.AUX_LOSS": True}),
 }
+# training cases: name -> (preset, config overrides, upscale ratios or
+# None for the configured ones). Drop rates are 0 (OT's preset drops 0.2
+# at level 1): JAX's dropout stream is not reproduced. "ud_train_r1" is
+# the curriculum's first epoch: every token splits.
+TRAIN = {
+    "ot_train": ("maskfiner_oracle_teacher.yaml",
+                 {"MODEL.MR.DROP_RATE": [0.0] * 4}, None),
+    "ud_train": ("maskfiner_up_down_mini.yaml", {}, None),
+    "ud_aux_train": ("maskfiner_up_down_mini.yaml",
+                     {"MODEL.MR.AUX_LOSS": True}, None),
+    "ud_train_r1": ("maskfiner_up_down_mini.yaml", {},
+                    [0.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0]),
+}
+LABELS = np.array([3, 7])
+# a first-layer level in training mode: its patch embedding's BatchNorm
+# normalises with the batch statistics and updates its running ones; the
+# loss is a fixed random projection of its output. Patches of 8 on 64^2:
+# 64 tokens, clustered (nbhd 32).
+FIRST_TRAIN = "first_level_train"
+SMOOTHING = 0.1
 # level cases: name -> (keep_old_scale, add_image_data_to_all, nbhd_size).
 # A scale-2 level (patches 32/16/8 on a 64^2 image, min patch 4) that
 # splits 9 of 12 scale-1 tokens into 36: 52 tokens with keep_old_scale, 43
@@ -176,6 +202,83 @@ def run_model(out, name):
         out[f"{name}/out/logits"] = np.asarray(logits)
 
 
+def run_train(out, name):
+    from ml_autofocusformermod_tpu.train.losses import (
+        smooth_one_hot, soft_target_cross_entropy,
+    )
+
+    preset, opts, ratios = TRAIN[name]
+    rng = np.random.default_rng(6)
+    model = build_model(tiny_mr(preset, **opts), upscale_ratios=ratios)
+    x = rng.standard_normal((B, IMG, IMG, 3)).astype(np.float32)
+    shapes = jax.eval_shape(lambda: model.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.asarray(x), training=False))
+    variables = draw_weights(rng, shapes)
+    target = smooth_one_hot(jnp.asarray(LABELS), 10, SMOOTHING)
+    stats0 = variables.get("batch_stats", {})  # none without a BatchNorm
+
+    def loss_fn(params, x):
+        del _captured[:]
+        outputs, upd = model.apply(
+            {"params": params, "batch_stats": stats0}, x,
+            training=True, mutable=["batch_stats"],
+            rngs={"dropout": jax.random.PRNGKey(1),
+                  "upsample": jax.random.PRNGKey(2)})
+        if isinstance(outputs, (list, tuple)):
+            losses = [soft_target_cross_entropy(o, target) for o in outputs]
+            loss = sum(losses) / len(losses)
+        else:
+            loss = soft_target_cross_entropy(outputs, target)
+        masks = {int(t): m for t, m in _captured}
+        return loss, (upd.get("batch_stats", {}), masks)
+
+    step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    with jax.default_matmul_precision("highest"):
+        (loss, (stats, masks)), grads = step(variables["params"],
+                                             jnp.asarray(x))
+    flat(f"{name}/params", variables["params"], out)
+    flat(f"{name}/batch_stats", stats0, out)
+    flat(f"{name}/grad", grads, out)
+    flat(f"{name}/new_stats", stats, out)
+    out[f"{name}/in/x"] = x
+    out[f"{name}/in/labels"] = LABELS
+    out[f"{name}/out/loss"] = np.asarray(loss)
+    for j, m in masks.items():
+        out[f"{name}/mask/{j}"] = np.asarray(m)
+
+
+def run_first_level_train(out, name):
+    rng = np.random.default_rng(12)
+    level = MixResNeighbour(
+        patch_sizes=(8,), n_layers=1, d_model=LEVEL_D, n_heads=2,
+        mlp_ratio=2.0, n_scales=4, cluster_size=8, nbhd_size=32,
+        min_patch_size=4, upscale_ratio=0.0, scale=0, first_layer=True,
+        drop_path_rate=(0.0,))
+    im = rng.standard_normal((B, IMG, IMG, 3)).astype(np.float32)
+    shapes = jax.eval_shape(lambda: level.init(
+        jax.random.PRNGKey(0), jnp.asarray(im), 0, None, None, None, {}))
+    variables = draw_weights(rng, shapes)
+    w = rng.standard_normal((B, 64, LEVEL_D)).astype(np.float32)
+
+    def loss_fn(params, im):
+        (outs, _), upd = level.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]}, im,
+            0, None, None, None, {}, training=True, mutable=["batch_stats"],
+            rngs={"dropout": jax.random.PRNGKey(1)})
+        return (outs["res5"] * w).sum(), upd["batch_stats"]
+
+    step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    with jax.default_matmul_precision("highest"):
+        (loss, stats), grads = step(variables["params"], jnp.asarray(im))
+    flat(f"{name}/params", variables["params"], out)
+    flat(f"{name}/batch_stats", variables["batch_stats"], out)
+    flat(f"{name}/grad", grads, out)
+    flat(f"{name}/new_stats", stats, out)
+    out[f"{name}/in/im"] = im
+    out[f"{name}/in/w"] = w
+    out[f"{name}/out/loss"] = np.asarray(loss)
+
+
 def main():
     maskfiner_ot._upsample_rng = _recording_rng
     maskfiner_ud._upsample_rng = _recording_rng
@@ -183,7 +286,10 @@ def main():
     path, cases = sys.argv[1], sys.argv[2:]
     out = {}
     for case in cases:
-        (run_model if case in MODELS else run_level)(out, case)
+        run = (run_model if case in MODELS else
+               run_train if case in TRAIN else
+               run_first_level_train if case == FIRST_TRAIN else run_level)
+        run(out, case)
     np.savez(path, **out)
 
 
