@@ -26,11 +26,29 @@ Phases, one JSON line each:
    n = 1921 with clamp_width 9, cs = 1 with nnc = 48, random ncc whose
    tile unions span several shared-memory chunks, AFF-Base-384's cs = 24
    with nnc = 6, heads of c_ = 556 and 1440, m = 760 with repeated
-   clusters), b = 2, fp32 and bf16;
+   clusters), b = 2, fp32 and bf16; at every one of these shapes also
+   the forward's two training modes (``..._stats_out``, ``_stats_max``,
+   ``_stats_denom``: the output and the saved softmax max and denominator;
+   ``..._dropout``: attention dropout 0.1, ``DROP``, where c_ % 8 == 0,
+   as the JAX package's dropout needs) against the plain version, with
+   the same limits (in fp32 one mask bit that disagrees
+   moves an output by about 0.1 |v|, far past 1e-4 of max|ref|), and at
+   b = 128 their times (kernel_time ``cluster_attention_fwd_stats`` and
+   ``_dropout``);
 4. kernel_check, backward: the same for the attention backward kernel
    against its plain backward, every output (dq, dkv, d_pe_kernel,
    d_pe_bias, d_blank_k, d_blank_v), the stress shapes with the plain
-   backward in f64;
+   backward in f64; at every shape also the saved-stats backward (the
+   forward kernel's own output and statistics; ``..._saved_<output>``)
+   against the plain backward in f64, and the saved backward under
+   dropout against the same with the dropout (``..._saved_dropout_...``),
+   and both against the exact gradient, the plain backward recomputing in
+   f64 (``..._exact_<output>``), each limit widened by the error of an
+   independent f64 emulation of the delta trick on the output rounded to
+   the inputs' dtype (``delta_trick_err``);
+   the b = 128 times of the saved backward (the mode training runs;
+   ``recompute_ms`` beside, the mode ``MLAFF_BWD_SAVED=0`` selects) and
+   of the dropout backward;
    then both merge kernels, forward and backward (dw, dfeat), against
    their plain versions with the same limits, and the backward's
    inverse-index kernel against its plain version (the same lists): the
@@ -53,10 +71,11 @@ Phases, one JSON line each:
    token splits, n = 245 / 1029 / 4165; ``..._final_*``: n = 193 / 625 /
    1921), b = 128 bf16 with times and bound and b = 2 fp32, every backward
    output against the plain backward in f64 (in batch chunks), with the
-   backward's dk/dv scratch bytes; and ``attention_bwd_deterministic``:
-   two attention backwards give the same bytes for every output, at
-   AFF-Mini stages 1-3 (b = 128 bf16, b = 8 fp32) and at UD-Mini's n =
-   4165 (b = 128 bf16, b = 2 fp32);
+   backward's dk/dv scratch bytes, in every mode as above; and
+   ``attention_bwd_deterministic``: two attention backwards give the
+   same bytes for every output, recomputing, from the saved statistics
+   and from them under dropout, at AFF-Mini stages 1-3 (b = 128 bf16,
+   b = 8 fp32) and at UD-Mini's n = 4165 (b = 128 bf16, b = 2 fp32);
 5. model_check: AFF-Mini 224 built through ``build_model`` and the port's
    ``aff_mini.yaml`` from a fixed seed, fp32, b = 2: the GPU forward (CUDA
    kernels, TF32 off) against the CPU forward (plain versions) on the same
@@ -72,8 +91,8 @@ Phases, one JSON line each:
    zero in exact arithmetic),
    the BatchNorm running stats within 1e-5 * max|ref| (the two devices
    reduce in another order); 10 + 10 attention and 3 + 3 merge launches
-   (forward + backward) and 3 merge inverse indexes (kernel launches) per
-   step;
+   (forward + backward; every forward with statistics, every backward
+   from them) and 3 merge inverse indexes (kernel launches) per step;
    maskfiner_model_check: OT and UD-Mini 224 at full width, the same
    way (fp32, b = 2, GPU against CPU on the same weights and upsampling
    masks): logits within 1e-3 and the same argmax, every level's nearest
@@ -81,12 +100,15 @@ Phases, one JSON line each:
    launches per forward, no other kernel, one tile metadata per local
    level (3 and 5);
    maskfiner_train_check: one train step of UD-Mini and of OT (with
-   ``MODEL.MR.DROP_RATE`` zeroed, ``overrides``: the devices' dropout
-   streams differ) at full width, fp32, b = 2, GPU against CPU from the
-   same weights and upsampling masks, at the curriculum's first ratios
-   and at the final ones: the same limits as train_check, and 16 + 16
-   (UD-Mini) or 25 + 25 (OT) attention launches per step, no other
-   kernel;
+   ``MODEL.MR.DROP_RATE`` zeroed, ``overrides``: the devices' Dropout
+   streams differ) at full width, fp32, b = 2, as the preset configures
+   it and again with attention dropout 0.1 on every level (its seeds
+   from the train state's CPU generator, the same on both devices), GPU
+   against CPU from the same weights and upsampling masks, at the
+   curriculum's first ratios and at the final ones: the same limits as
+   train_check, and 16 + 16 (UD-Mini) or 25 + 25 (OT) attention launches
+   per step, every one with statistics (and dropout in the dropout run),
+   no other kernel;
 7. eval / throughput: the entry point ``ml_autofocusformermod_torch.main``
    with ``--eval`` over a few synthetic batches, then ``--throughput`` at
    b = 128 in bf16 (50 warmup + 30 timed forwards);
@@ -98,9 +120,11 @@ Phases, one JSON line each:
    beside the card's name and power limit; the attention forward is the
    only kernel launched (16 and 25 per forward);
 10. maskfiner_train: the entry point training UD-Mini 224 (the MaskFiner
-   training path) and OT 224 in bf16 at b = 128 for two synthetic epochs
-   of 4 steps (the curriculum: ratio 1.0, then halfway to the final
-   ratios), a checkpoint and a validation each; per epoch
+   training path) and OT 224 in bf16 at b = 128, as the preset
+   configures them and again with attention dropout 0.1 on every level,
+   for two synthetic epochs of 4 steps (the curriculum: ratio 1.0, then
+   halfway to the final ratios), a checkpoint and a validation each; per
+   epoch
    (``maskfiner_train_epoch``) the ratios, images/s after the first step,
    step times and peak memory, beside the card's name and power limit.
    Before the entry-point phases, dropout_check: the port's Dropout on
@@ -108,9 +132,13 @@ Phases, one JSON line each:
    reseeded generator).
 
 The launch counters are zeroed just before each run of the entry point
-and read just after. The ``kernels`` line gives each kernel's launches in
-the AFF-Mini training run and, under ``launches_by_path``, in the UD-Mini
-throughput and training runs too, and for the attention kernels their
+and read just after; each mode of the attention kernels has a counter of
+its own. The ``kernels`` line gives each kernel's launches in the
+AFF-Mini training run (the dropout modes': the UD-Mini training run
+with attention dropout) and, under ``launches_by_path``, in the UD-Mini
+throughput run and in each MaskFiner training run too (``..._train``: as
+the preset configures it; ``..._train_attn_drop``: with attention
+dropout), and for the attention kernels their
 times at the UD-Mini shapes (``maskfiner_ud_mini``: the forward at eval;
 ``maskfiner_ud_mini_train_r1`` / ``_final``: forward and backward per
 training step).
@@ -123,6 +151,7 @@ rest of the repository beside it, the script fails.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -144,12 +173,30 @@ V100_AFF_MINI_IMG_S = 1337.0  # reference AFF-Mini forward, one V100
 CSRC = "ml_autofocusformermod_torch/csrc/"
 TPU_CLUSTEN = "ml_autofocusformermod_tpu/ops/clusten_pallas.py:"
 TPU_MERGE = "ml_autofocusformermod_tpu/ops/merge_pallas.py:"
-# name: (source, the TPU kernel it replaces, others it also replaces)
+# name: (source, the TPU kernel it replaces, others it also replaces);
+# the attention kernels' modes (the forward with its saved statistics, or
+# with dropout; the backward under dropout) have entries of their own, the
+# backward's entry is its saved-stats mode, as training runs it (the
+# recompute mode, cluster_attention_bwd.cu, runs only with
+# MLAFF_BWD_SAVED=0: its times stand beside as recompute_ms)
 KERNELS = {
     "cluster_attention_fwd": ("cluster_attention.cu", TPU_CLUSTEN + "740",
                               [TPU_CLUSTEN + "965"]),
-    "cluster_attention_bwd": ("cluster_attention_bwd.cu",
-                              TPU_CLUSTEN + "1764", [TPU_CLUSTEN + "1127"]),
+    "cluster_attention_fwd_stats": ("cluster_attention.cu",
+                                    TPU_CLUSTEN + "3011",
+                                    [TPU_CLUSTEN + "754",
+                                     TPU_CLUSTEN + "1077"]),
+    "cluster_attention_fwd_dropout": ("cluster_attention.cu",
+                                      TPU_CLUSTEN + "708",
+                                      [TPU_CLUSTEN + "940",
+                                       TPU_CLUSTEN + "3156"]),
+    "cluster_attention_bwd": ("cluster_attention_bwd_saved.cu",
+                              TPU_CLUSTEN + "1764",
+                              [TPU_CLUSTEN + "1127", TPU_CLUSTEN + "1915",
+                               TPU_CLUSTEN + "1222"]),
+    "cluster_attention_bwd_dropout": ("cluster_attention_bwd_saved.cu",
+                                      TPU_CLUSTEN + "2230",
+                                      [TPU_CLUSTEN + "3181"]),
     "cluster_merge_fwd": ("cluster_merge.cu", TPU_MERGE + "199", []),
     "cluster_merge_bwd": ("cluster_merge_bwd.cu", TPU_MERGE + "304", []),
     # the merge backward's inverse index: part of that kernel's port (the
@@ -376,16 +423,118 @@ def prev(kernel, row):
             "prev_ms_from": "recorded, not this run (PERF.md section 6)"}
 
 
-def check(name, dtype_name, out, ref):
+def check(name, dtype_name, out, ref, delta_trick_err=None):
+    """``out`` within 1e-4 (fp32) or 2e-2 (bf16) of max|ref| of ``ref``,
+    plus ``delta_trick_err`` where given (see :func:`check_exact`)."""
     err = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
     tol = (1e-4 if dtype_name == "float32" else 2e-2) * scale
+    extra = {}
+    if delta_trick_err is not None:
+        tol += delta_trick_err
+        extra["delta_trick_err"] = delta_trick_err
     ok = err <= tol and bool(out.float().isfinite().all())
     emit({"phase": "kernel_check", "shape": name, "dtype": dtype_name,
-          "max_abs_err": err, "max_abs_ref": scale, "tol": tol, "ok": ok})
+          "max_abs_err": err, "max_abs_ref": scale, "tol": tol, **extra,
+          "ok": ok})
     if not ok:
         raise AssertionError(f"{name} {dtype_name}: max abs err {err} > {tol}")
     return err
+
+
+DROP = (0.1, 1234567)  # attention dropout of the checks: BERT's rate
+
+
+def check_stats(name, dtype_name, h, got, ref):
+    """The forward's statistics against the plain ones: the max (lanes
+    [0, h)) and the denominator (lanes [h, 2h)) each within the limits."""
+    return max(check(f"{name}_stats_max", dtype_name, got[..., :h],
+                     ref[..., :h]),
+               check(f"{name}_stats_denom", dtype_name, got[..., h:],
+                     ref[..., h:]))
+
+
+def check_modes_fwd(torch, name, dtype_name, args, geo, meta=None):
+    """The forward with statistics (output and statistics) and with
+    dropout against the plain versions (f32 inside) on the same inputs;
+    dropout where c_ % 8 == 0 (as the JAX package's, it needs that).
+    Returns the kernel's (out, stats) of both (None for no dropout), for
+    the backwards, and the worst error."""
+    from ml_autofocusformermod_torch.ops.cluster_attention import (
+        cluster_attention_forward, cluster_attention_reference,
+    )
+
+    plain = [t.float() if t.is_floating_point() else t for t in args]
+    saved = cluster_attention_forward(*args, *geo, meta=meta,
+                                      want_stats=True)
+    ref = cluster_attention_reference(*plain, *geo, want_stats=True)
+    torch.cuda.synchronize()
+    err = max(check(f"{name}_stats_out", dtype_name, saved[0], ref[0]),
+              check_stats(name, dtype_name, geo[0], saved[1], ref[1]))
+    dsaved = None
+    if (args[0].shape[2] // geo[0]) % 8 == 0:
+        dsaved = cluster_attention_forward(*args, *geo, meta=meta, drop=DROP,
+                                           want_stats=True)
+        dref = cluster_attention_reference(*plain, *geo, drop=DROP)
+        torch.cuda.synchronize()
+        err = max(err, check(f"{name}_dropout", dtype_name, dsaved[0], dref))
+    return saved, dsaved, err
+
+
+def check_modes_bwd(torch, name, dtype_name, args, g, geo, saved, dsaved,
+                    meta=None):
+    """The saved-stats backward on the forward kernel's own output and
+    statistics (``saved``), and under dropout (``dsaved``, the forward's
+    with the dropout; None: no dropout check), against the plain saved
+    backward in f64 on the same inputs (in batch chunks), every output
+    (``..._saved_<output>``, ``..._saved_dropout_<output>``), and against
+    the exact gradient (:func:`check_exact`). Returns the worst error."""
+    from ml_autofocusformermod_torch.ops.cluster_attention import (
+        cluster_attention_backward,
+    )
+
+    outs = ["dq", "dkv", "d_pe_kernel", "d_pe_bias", "d_blank_k",
+            "d_blank_v"]
+    err = 0.0
+    for mode, sv, drop in (("saved", saved, None),
+                           ("saved_dropout", dsaved, DROP)):
+        if sv is None:
+            continue
+        exact = plain_backward(torch, args, g, geo, torch.float64, saved=sv,
+                               drop=drop)
+        got = cluster_attention_backward(*args, g, *geo, meta=meta,
+                                         saved=sv, drop=drop)
+        torch.cuda.synchronize()
+        err = max([err] + [check(f"{name}_{mode}_{o}", dtype_name, x, y)
+                           for o, x, y in zip(outs, got, exact)])
+        del exact
+        err = max(err, check_exact(torch, f"{name}_{mode}", dtype_name, args,
+                                   g, geo, got, drop))
+    return err
+
+
+def check_exact(torch, name, dtype_name, args, g, geo, got, drop):
+    """The saved-stats backward's outputs ``got`` against the exact
+    gradient, the plain backward recomputing in f64 (lines
+    ``..._exact_<output>``). The saved mode takes S = rowsum(g * out) from
+    the output as stored, in q's dtype, so its gradient carries that
+    rounding beside the kernel's own: each limit is the usual one plus
+    ``delta_trick_err``, the error against the same exact gradient of an
+    independent emulation of the delta trick, the plain saved backward in
+    f64 on the plain f64 forward's output rounded to q's dtype and its
+    statistics rounded to f32. A stored output rounded worse than once
+    shows past it. Returns the worst error."""
+    outs = ["dq", "dkv", "d_pe_kernel", "d_pe_bias", "d_blank_k",
+            "d_blank_v"]
+    exact = plain_backward(torch, args, g, geo, torch.float64, drop=drop)
+    out, stats = plain_forward(torch, args, geo, torch.float64, drop=drop)
+    emulated = plain_backward(torch, args, g, geo, torch.float64,
+                              saved=(out.to(args[0].dtype), stats.float()),
+                              drop=drop)
+    del out, stats
+    return max(check(f"{name}_exact_{o}", dtype_name, x, y,
+                     delta_trick_err=(e - y).abs().max().item())
+               for o, x, e, y in zip(outs, got, emulated, exact))
 
 
 def emit_union(torch, name, ncc):
@@ -400,9 +549,23 @@ def emit_union(torch, name, ncc):
           "union_clusters_mean": count.mean().item()})
 
 
+def timed_row(torch, base, fn, plain, work, err, **extra):
+    """A kernel_time row: the call's times, the plain version's, the
+    bound of ``work`` = (bytes, flops) at bf16, the worst check error."""
+    bms, by = bound_ms(work[0], work[1], "bfloat16")
+    return dict(base, ms=time_ms(fn), device_ms=device_ms(fn),
+                plain_ms=time_ms(plain, iters=5, warmup=1), bound_ms=bms,
+                bound_by=by, bytes=work[0], flops=work[1], max_abs_err=err,
+                **extra)
+
+
 def phase_kernels(torch):
+    """The attention forward at the AFF-Mini stages and the stress shapes,
+    in its three modes: inference, with the saved statistics, and with
+    dropout (rows ``attention``, ``stats``, ``dropout``)."""
     from ml_autofocusformermod_torch.ops.cluster_attention import (
-        cluster_attention_reference, fused_cluster_attention, tile_metadata,
+        cluster_attention_forward, cluster_attention_reference,
+        fused_cluster_attention, tile_metadata,
     )
 
     dev = torch.device("cuda")
@@ -410,9 +573,9 @@ def phase_kernels(torch):
     names = ["q", "kv", "ncc", "pos", "pe_kernel", "pe_bias", "blank_k",
              "blank_v"]
     R = 224 // 4 - 1
-    rows = {"attention": []}
+    rows = {"attention": [], "stats": [], "dropout": []}
     for label, n, h, c, per_fwd in ATTN_STAGES:
-        errs = []
+        errs, errs_m = [], []
         for dtype in (torch.float32, torch.bfloat16):
             a = attention_inputs(gen, 8, n, h, c, dev, dtype)
             out = fused_cluster_attention(*(a[k] for k in names), h, CS, R)
@@ -422,6 +585,9 @@ def phase_kernels(torch):
             torch.cuda.synchronize()
             errs.append(check(f"attention_{label}",
                               str(dtype).split(".")[1], out, ref))
+            errs_m.append(check_modes_fwd(
+                torch, f"attention_{label}", str(dtype).split(".")[1],
+                [a[k] for k in names], (h, CS, R, 0))[2])
         a = attention_inputs(gen, 128, n, h, c, dev, torch.bfloat16)
         args = [a[k] for k in names]
         # as the model calls it: the stage's tile metadata made once
@@ -430,6 +596,9 @@ def phase_kernels(torch):
         ref = cluster_attention_reference(*args, h, CS, R)  # f32 inside
         torch.cuda.synchronize()
         errs.append(check(f"attention_{label}_b128", "bfloat16", out, ref))
+        errs_m.append(check_modes_fwd(torch, f"attention_{label}_b128",
+                                      "bfloat16", args, (h, CS, R, 0),
+                                      meta)[2])
         ms = time_ms(lambda: fused_cluster_attention(*args, h, CS, R,
                                                      meta=meta))
         dev_ms = device_ms(lambda: fused_cluster_attention(*args, h, CS, R,
@@ -446,6 +615,21 @@ def phase_kernels(torch):
         emit({"phase": "kernel_time", "kernel": "cluster_attention_fwd",
               **rows["attention"][-1], "tile_metadata_ms": meta_ms,
               **prev("cluster_attention_fwd", rows["attention"][-1])})
+        base = dict(shape=label, b=128, n=n, heads=h, c=c, per_pass=per_fwd)
+        stats_bytes = 128 * n * 2 * h * 4  # written once more
+        for kernel, mode, kw in (
+                ("cluster_attention_fwd_stats", "stats",
+                 dict(want_stats=True)),
+                ("cluster_attention_fwd_dropout", "dropout",
+                 dict(want_stats=True, drop=DROP))):
+            rows[mode].append(timed_row(
+                torch, base,
+                lambda: cluster_attention_forward(*args, h, CS, R, meta=meta,
+                                                  **kw),
+                lambda: cluster_attention_reference(*args, h, CS, R, **kw),
+                (moved + stats_bytes, flops), max(errs_m)))
+            emit({"phase": "kernel_time", "kernel": kernel,
+                  **rows[mode][-1]})
     for shape in STRESS:
         for dtype in (torch.float32, torch.bfloat16):
             a, (h, cs, R, clamp) = stress_inputs(torch, gen, shape, 2, dev,
@@ -458,14 +642,23 @@ def phase_kernels(torch):
             torch.cuda.synchronize()
             check(f"attention_stress_{shape[0]}", str(dtype).split(".")[1],
                   out, ref)
+            check_modes_fwd(torch, f"attention_stress_{shape[0]}",
+                            str(dtype).split(".")[1],
+                            [a[k] for k in names], (h, cs, R, clamp))
         emit_union(torch, shape[0], a["ncc"])
     return rows
 
 
 def phase_kernels_bwd(torch):
+    """The attention backward at the AFF-Mini stages and the stress
+    shapes: the recompute mode against the plain backward (f32, the
+    stress shapes f64), the saved-stats mode and the saved mode under
+    dropout against the plain backward in f64 (rows ``attention``: the
+    saved mode, as training calls it, with the recompute mode's times
+    beside; ``dropout``)."""
     from ml_autofocusformermod_torch.ops.cluster_attention import (
         cluster_attention_backward, cluster_attention_backward_reference,
-        tile_metadata,
+        cluster_attention_forward, tile_metadata,
     )
 
     dev = torch.device("cuda")
@@ -474,7 +667,7 @@ def phase_kernels_bwd(torch):
              "blank_v"]
     outs = ["dq", "dkv", "d_pe_kernel", "d_pe_bias", "d_blank_k", "d_blank_v"]
     R = 224 // 4 - 1
-    rows = {"attention": []}
+    rows = {"attention": [], "dropout": []}
 
     def f32(t):
         return t.float() if t.is_floating_point() else t
@@ -483,41 +676,68 @@ def phase_kernels_bwd(torch):
         return t.double() if t.is_floating_point() else t
 
     for label, n, h, c, per_step in ATTN_STAGES:
-        errs = []
+        errs, errs_d = [], []
         for b, dtype in ((8, torch.float32), (8, torch.bfloat16),
                          (128, torch.bfloat16)):
             a = attention_inputs(gen, b, n, h, c, dev, dtype)
             g = torch.randn(b, n, c, generator=gen).to(dev, dtype)
             args = [a[k] for k in names]
+            dt = str(dtype).split(".")[1]
             got = cluster_attention_backward(*args, g, h, CS, R)
             want = cluster_attention_backward_reference(
                 *(f32(t) for t in args), g.float(), h, CS, R)
             torch.cuda.synchronize()
             tag = f"attention_bwd_{label}" + ("_b128" if b == 128 else "")
             for o, x, y in zip(outs, got, want):
-                errs.append(check(f"{tag}_{o}", str(dtype).split(".")[1], x, y))
+                errs.append(check(f"{tag}_{o}", dt, x, y))
+            del got, want
+            saved, dsaved, _ = check_modes_fwd(torch, tag, dt, args,
+                                               (h, CS, R, 0))
+            err = check_modes_bwd(torch, tag, dt, args, g, (h, CS, R, 0),
+                                  saved, dsaved)
+            errs.append(err)
+            errs_d.append(err)
         meta = tile_metadata(a["ncc"])  # once per stage, as in the model
-        ms = time_ms(lambda: cluster_attention_backward(*args, g, h, CS, R,
-                                                        meta=meta))
-        dev_ms = device_ms(lambda: cluster_attention_backward(
-            *args, g, h, CS, R, meta=meta))
-        plain = time_ms(lambda: cluster_attention_backward_reference(
-            *args, g, h, CS, R), iters=5, warmup=1)
+        saved = cluster_attention_forward(*args, h, CS, R, meta=meta,
+                                          want_stats=True)
+        dsaved = cluster_attention_forward(*args, h, CS, R, meta=meta,
+                                           drop=DROP, want_stats=True)
         moved, flops = attn_bwd_work(torch, a, g, h, CS)
-        bms, by = bound_ms(moved, flops, "bfloat16")
-        rows["attention"].append(dict(
-            shape=label, b=128, n=n, heads=h, c=c, per_pass=per_step, ms=ms,
-            device_ms=dev_ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-            bytes=moved, flops=flops, max_abs_err=max(errs)))
+        moved += nbytes(*saved)  # the saved mode reads out and the stats
+        base = dict(shape=label, b=128, n=n, heads=h, c=c, per_pass=per_step)
+        recompute = lambda: cluster_attention_backward(*args, g, h, CS, R,
+                                                       meta=meta)
+        rows["attention"].append(timed_row(
+            torch, base,
+            lambda: cluster_attention_backward(*args, g, h, CS, R, meta=meta,
+                                               saved=saved),
+            lambda: cluster_attention_backward_reference(
+                *args, g, h, CS, R, saved=saved),
+            (moved, flops), max(errs), mode="saved",
+            recompute_ms=time_ms(recompute),
+            recompute_device_ms=device_ms(recompute),
+            recompute_plain_ms=time_ms(
+                lambda: cluster_attention_backward_reference(
+                    *args, g, h, CS, R), iters=5, warmup=1)))
         emit({"phase": "kernel_time", "kernel": "cluster_attention_bwd",
               **rows["attention"][-1],
               **prev("cluster_attention_bwd", rows["attention"][-1])})
+        rows["dropout"].append(timed_row(
+            torch, base,
+            lambda: cluster_attention_backward(*args, g, h, CS, R, meta=meta,
+                                               saved=dsaved, drop=DROP),
+            lambda: cluster_attention_backward_reference(
+                *args, g, h, CS, R, saved=dsaved, drop=DROP),
+            (moved, flops), max(errs_d), mode="saved"))
+        emit({"phase": "kernel_time", "kernel": "cluster_attention_bwd_dropout",
+              **rows["dropout"][-1]})
     for shape in STRESS:
         for dtype in (torch.float32, torch.bfloat16):
             a, (h, cs, R, clamp) = stress_inputs(torch, gen, shape, 2, dev,
                                                  dtype)
             g = torch.randn(a["q"].shape, generator=gen).to(dev, dtype)
             args = [a[k] for k in names]
+            dt = str(dtype).split(".")[1]
             got = cluster_attention_backward(*args, g, h, cs, R, clamp)
             # in f64: at c_ = 556 the f32 plain version's own rounding in
             # d_pe_bias (a sum of slot terms that cancel) nears the limit
@@ -525,8 +745,12 @@ def phase_kernels_bwd(torch):
                 *(f64(t) for t in args), g.double(), h, cs, R, clamp)
             torch.cuda.synchronize()
             for o, x, y in zip(outs, got, want):
-                check(f"attention_bwd_stress_{shape[0]}_{o}",
-                      str(dtype).split(".")[1], x, y)
+                check(f"attention_bwd_stress_{shape[0]}_{o}", dt, x, y)
+            geo = (h, cs, R, clamp)
+            saved, dsaved, _ = check_modes_fwd(
+                torch, f"attention_bwd_stress_{shape[0]}", dt, args, geo)
+            check_modes_bwd(torch, f"attention_bwd_stress_{shape[0]}", dt,
+                            args, g, geo, saved, dsaved)
     return rows
 
 
@@ -838,11 +1062,30 @@ def phase_maskfiner_model(torch):
                                  "plain path or launched the wrong kernels")
 
 
-def plain_backward(torch, args, g, geo, dtype, chunk=8):
+def plain_forward(torch, args, geo, dtype, chunk=8, drop=None):
+    """The plain forward's (out, stats) in ``dtype`` over batch chunks of
+    ``chunk`` images, as :func:`plain_backward` goes."""
+    from ml_autofocusformermod_torch.ops.cluster_attention import (
+        cluster_attention_reference,
+    )
+
+    parts = []
+    for s0 in range(0, args[0].shape[0], chunk):
+        sl = [(t[s0:s0 + chunk] if i < 4 else t) for i, t in enumerate(args)]
+        parts.append(cluster_attention_reference(
+            *(t.to(dtype) if t.is_floating_point() else t for t in sl),
+            *geo, drop=drop, want_stats=True, img0=s0))
+    return tuple(torch.cat([p[i] for p in parts]) for i in range(2))
+
+
+def plain_backward(torch, args, g, geo, dtype, chunk=8, saved=None,
+                   drop=None):
     """The plain backward in ``dtype`` over batch chunks of ``chunk``
     images (its gathered (b, h, n, m, c_) tensors of a whole b = 128 batch
     would not fit the card in f64): dq and dkv per image, the parameter
-    gradients summed over the chunks."""
+    gradients summed over the chunks. ``saved``: the forward's (out,
+    stats); ``drop``: (rate, seed), whose masks hash the image's index in
+    the whole batch, so each chunk takes its images' masks apart."""
     from ml_autofocusformermod_torch.ops.cluster_attention import (
         cluster_attention_backward_reference,
     )
@@ -855,8 +1098,14 @@ def plain_backward(torch, args, g, geo, dtype, chunk=8):
     for s0 in range(0, b, chunk):
         sl = [cast(t[s0:s0 + chunk] if i < 4 else t)
               for i, t in enumerate(args)]
+        kw = {}
+        if saved is not None:
+            kw["saved"] = tuple(cast(t[s0:s0 + chunk]) for t in saved)
+        if drop is not None:
+            kw["drop"] = drop
+            kw["img0"] = s0
         parts.append(cluster_attention_backward_reference(
-            *sl, cast(g[s0:s0 + chunk]), *geo))
+            *sl, cast(g[s0:s0 + chunk]), *geo, **kw))
     return ([torch.cat([p[i] for p in parts]) for i in range(2)]
             + [sum(p[i] for p in parts) for i in range(2, 6)])
 
@@ -868,18 +1117,25 @@ def phase_maskfiner_train_kernels(torch):
     curriculum's first ratios (every token splits: n = 245 / 1029 / 4165)
     and at the final ones (n = 193 / 625 / 1921): b = 128 bf16 (check and
     times) and b = 2 fp32 (check), every backward output against the
-    plain backward in f64. Returns the b = 128 rows by kernel and the
-    widest shape's captures (for the determinism phase)."""
+    plain backward in f64; each kernel in every mode (the forward with
+    statistics and with dropout, the backward recomputing, from the saved
+    statistics and under dropout). Returns the b = 128 rows by kernel (the
+    backward's: the saved mode, with the recompute mode's times beside)
+    and the widest shape's captures (for the determinism phase)."""
     from ml_autofocusformermod_torch.ops.cluster_attention import (
-        TILE, cluster_attention_backward, cluster_attention_reference,
-        fused_cluster_attention, union_rows,
+        TILE, cluster_attention_backward, cluster_attention_forward,
+        cluster_attention_reference, fused_cluster_attention, union_rows,
     )
 
     dev = torch.device("cuda")
     preset = MASKFINER["maskfiner_ud_mini"][0]
     outs = ["dq", "dkv", "d_pe_kernel", "d_pe_bias", "d_blank_k",
             "d_blank_v"]
-    rows = {"cluster_attention_fwd": [], "cluster_attention_bwd": []}
+    rows = {k: [] for k in ("cluster_attention_fwd",
+                            "cluster_attention_fwd_stats",
+                            "cluster_attention_fwd_dropout",
+                            "cluster_attention_bwd",
+                            "cluster_attention_bwd_dropout")}
     widest = {}
     for tag, ratios in (("r1", RATIO_ONE[preset]), ("final", None)):
         for b, dtype_name in ((128, "bfloat16"), (2, "float32")):
@@ -896,12 +1152,17 @@ def phase_maskfiner_train_kernels(torch):
                 ref = cluster_attention_reference(*args, *geo)
                 torch.cuda.synchronize()
                 err_f = check(label, dtype_name, out, ref)
+                del ref
+                saved, dsaved, err_m = check_modes_fwd(
+                    torch, label, dtype_name, args, geo, meta)
                 got = cluster_attention_backward(*args, g, *geo, meta=meta)
                 want = plain_backward(torch, args, g, geo, torch.float64)
                 torch.cuda.synchronize()
                 err_b = max(check(f"{label}_bwd_{o}", dtype_name, x, y)
                             for o, x, y in zip(outs, got, want))
-                del want
+                del got, want
+                err_s = check_modes_bwd(torch, f"{label}_bwd", dtype_name,
+                                        args, g, geo, saved, dsaved, meta)
                 n, c = row["n"], row["c"]
                 scratch = 4 * b * -(-n // TILE) * union_rows(
                     meta, row["cs"]) * 2 * c
@@ -914,46 +1175,79 @@ def phase_maskfiner_train_kernels(torch):
                     widest[dtype_name] = (args, g, geo, meta)
                 if b != 128:
                     continue
-                common = dict(model="maskfiner_ud_mini_train", ratios=tag,
-                              shape=row["label"], b=b, n=n,
-                              heads=row["heads"], c=c,
-                              clamp_width=row["clamp"],
-                              per_pass=row["per_pass"])
-                fwd = lambda: fused_cluster_attention(*args, *geo, meta=meta)
-                bwd = lambda: cluster_attention_backward(*args, g, *geo,
-                                                         meta=meta)
-                plain_f = lambda: [cluster_attention_reference(
-                    *(t[s0:s0 + 32] if i < 4 else t
-                      for i, t in enumerate(args)), *geo)
-                    for s0 in range(0, b, 32)]  # in chunks, as plain_b
-                plain_b = lambda: plain_backward(torch, args, g, geo,
-                                                 torch.float32, chunk=32)
-                for kernel, fn, plain, work, err in (
-                        ("cluster_attention_fwd", fwd, plain_f,
-                         attn_work(torch, a, row["heads"], row["cs"]), err_f),
-                        ("cluster_attention_bwd", bwd, plain_b,
-                         attn_bwd_work(torch, a, g, row["heads"], row["cs"]),
-                         err_b)):
+                base = dict(model="maskfiner_ud_mini_train", ratios=tag,
+                            shape=row["label"], b=b, n=n,
+                            heads=row["heads"], c=c,
+                            clamp_width=row["clamp"],
+                            per_pass=row["per_pass"])
+
+                def chunked(fn, step=32):
+                    """fn(args of a batch chunk, first image) over the
+                    batch in chunks, as plain_backward goes"""
+                    return lambda: [fn([t[s0:s0 + step] if i < 4 else t
+                                        for i, t in enumerate(args)], s0)
+                                    for s0 in range(0, b, step)]
+
+                fwd_w = attn_work(torch, a, row["heads"], row["cs"])
+                bwd_w = attn_bwd_work(torch, a, g, row["heads"], row["cs"])
+                sb = nbytes(*saved)  # the statistics written or read, out
+                stats_w = (fwd_w[0] + nbytes(saved[1]), fwd_w[1])
+                saved_w = (bwd_w[0] + sb, bwd_w[1])
+                recompute = lambda: cluster_attention_backward(
+                    *args, g, *geo, meta=meta)
+                calls = (
+                    ("cluster_attention_fwd",
+                     lambda: fused_cluster_attention(*args, *geo, meta=meta),
+                     chunked(lambda x, s0: cluster_attention_reference(
+                         *x, *geo)), fwd_w, err_f, {}),
+                    ("cluster_attention_fwd_stats",
+                     lambda: cluster_attention_forward(
+                         *args, *geo, meta=meta, want_stats=True),
+                     chunked(lambda x, s0: cluster_attention_reference(
+                         *x, *geo, want_stats=True)), stats_w, err_m, {}),
+                    ("cluster_attention_fwd_dropout",
+                     lambda: cluster_attention_forward(
+                         *args, *geo, meta=meta, drop=DROP, want_stats=True),
+                     chunked(lambda x, s0: cluster_attention_reference(
+                         *x, *geo, drop=DROP, want_stats=True, img0=s0)),
+                     stats_w, err_m, {}),
+                    ("cluster_attention_bwd",
+                     lambda: cluster_attention_backward(
+                         *args, g, *geo, meta=meta, saved=saved),
+                     lambda: plain_backward(torch, args, g, geo,
+                                            torch.float32, chunk=32,
+                                            saved=saved),
+                     saved_w, max(err_b, err_s),
+                     dict(mode="saved", recompute_ms=time_ms(recompute),
+                          recompute_device_ms=device_ms(recompute),
+                          bwd_scratch_bytes=scratch)),
+                    ("cluster_attention_bwd_dropout",
+                     lambda: cluster_attention_backward(
+                         *args, g, *geo, meta=meta, saved=dsaved, drop=DROP),
+                     lambda: plain_backward(torch, args, g, geo,
+                                            torch.float32, chunk=32,
+                                            saved=dsaved, drop=DROP),
+                     saved_w, err_s, dict(mode="saved")))
+                for kernel, fn, plain, work, err, extra in calls:
                     bms, by = bound_ms(work[0], work[1], "bfloat16")
                     rows[kernel].append(dict(
-                        **common, ms=time_ms(fn), device_ms=device_ms(fn),
+                        **base, ms=time_ms(fn), device_ms=device_ms(fn),
                         plain_ms=time_ms(plain, iters=3, warmup=1),
                         bound_ms=bms, bound_by=by, bytes=work[0],
-                        flops=work[1], max_abs_err=err))
-                    extra = ({"bwd_scratch_bytes": scratch}
-                             if kernel == "cluster_attention_bwd" else {})
+                        flops=work[1], max_abs_err=err, **extra))
                     emit({"phase": "kernel_time", "kernel": kernel,
-                          **rows[kernel][-1], **extra})
+                          **rows[kernel][-1]})
     return rows, widest
 
 
 def phase_attention_bwd_deterministic(torch, widest):
     """Two attention backwards on the same inputs give the same bytes for
-    every output (no float atomics): AFF-Mini stages 1-3 (b = 128 bf16 and
-    b = 8 fp32) and the widest UD-Mini training shape (n = 4165, captured,
-    b = 128 bf16 and b = 2 fp32)."""
+    every output (no float atomics), in each mode (recomputing, from the
+    saved statistics, and the saved mode under dropout): AFF-Mini stages
+    1-3 (b = 128 bf16 and b = 8 fp32) and the widest UD-Mini training
+    shape (n = 4165, captured, b = 128 bf16 and b = 2 fp32)."""
     from ml_autofocusformermod_torch.ops.cluster_attention import (
-        cluster_attention_backward, tile_metadata,
+        cluster_attention_backward, cluster_attention_forward, tile_metadata,
     )
 
     dev = torch.device("cuda")
@@ -970,19 +1264,25 @@ def phase_attention_bwd_deterministic(torch, widest):
         cases.append((f"maskfiner_ud_mini_train_r1_n{args[0].shape[1]}"
                       f"_b{args[0].shape[0]}", args, g, geo, meta))
     for name, args, g, geo, meta in cases:
-        first = cluster_attention_backward(*args, g, *geo, meta=meta)
-        second = cluster_attention_backward(*args, g, *geo, meta=meta)
-        torch.cuda.synchronize()
-        equal = {o: bool(torch.equal(x, y)) for o, x, y in zip(
-            ["dq", "dkv", "d_pe_kernel", "d_pe_bias", "d_blank_k",
-             "d_blank_v"], first, second)}
-        ok = all(equal.values())
-        emit({"phase": "attention_bwd_deterministic", "shape": name,
-              "dtype": str(args[0].dtype).split(".")[1], "equal": equal,
-              "ok": ok})
-        if not ok:
-            raise AssertionError(f"attention backward not reproducible at "
-                                 f"{name}: {equal}")
+        for mode, drop in (("recompute", None), ("saved", None),
+                           ("saved_dropout", DROP)):
+            saved = (None if mode == "recompute" else
+                     cluster_attention_forward(*args, *geo, meta=meta,
+                                               drop=drop, want_stats=True))
+            first, second = (cluster_attention_backward(
+                *args, g, *geo, meta=meta, saved=saved, drop=drop)
+                for _ in range(2))
+            torch.cuda.synchronize()
+            equal = {o: bool(torch.equal(x, y)) for o, x, y in zip(
+                ["dq", "dkv", "d_pe_kernel", "d_pe_bias", "d_blank_k",
+                 "d_blank_v"], first, second)}
+            ok = all(equal.values())
+            emit({"phase": "attention_bwd_deterministic", "shape": name,
+                  "mode": mode, "dtype": str(args[0].dtype).split(".")[1],
+                  "equal": equal, "ok": ok})
+            if not ok:
+                raise AssertionError(f"attention backward ({mode}) not "
+                                     f"reproducible at {name}: {equal}")
 
 
 def phase_maskfiner_train_check(torch):
@@ -990,13 +1290,17 @@ def phase_maskfiner_train_check(torch):
     fp32, b = 2, on the GPU (kernels, TF32 off) against the same step on
     the CPU (plain versions) from the same weights and upsampling masks
     (the train state's CPU generator), at the curriculum's first ratios
-    and at the final ones: loss and grad_norm within 1e-4 relative, every
-    gradient within 1e-3 of its tensor's largest entry (floored at 1e-5 of
-    the gradient norm), the BatchNorm statistics within 1e-5 (the presets
-    have none), and the attention forward and backward launches per step
-    (16 and 16 for UD-Mini, 25 and 25 for OT), no other kernel. OT runs
-    with ``MODEL.MR.DROP_RATE`` zeroed: the two devices' dropout streams
-    differ."""
+    and at the final ones, each as the preset configures it and with
+    attention dropout 0.1 on every level (``ATTN_DROP_RATE``; its seeds
+    come from the train state's CPU generator and its masks hash them, so
+    both devices drop alike): loss and grad_norm within 1e-4 relative,
+    every gradient within 1e-3 of its tensor's largest entry (floored at
+    1e-5 of the gradient norm), the BatchNorm statistics within 1e-5 (the
+    presets have none), and the attention forward and backward launches
+    per step (16 and 16 for UD-Mini, 25 and 25 for OT; each forward with
+    statistics, each backward from them, both with dropout in the
+    dropout run), no other kernel. OT runs with ``MODEL.MR.DROP_RATE``
+    zeroed: the two devices' Dropout streams differ."""
     import numpy as np
 
     from ml_autofocusformermod_torch.models.build import build_model
@@ -1008,12 +1312,17 @@ def phase_maskfiner_train_check(torch):
     x = torch.from_numpy(rng.standard_normal((2, 3, 224, 224)).astype(
         np.float32))
     y = torch.tensor([3, 977])
-    for name, (preset, attn, _) in MASKFINER.items():
-        opts = ["TPU.COMPUTE_DTYPE", "float32"]
+    for (name, (preset, attn, _)), attn_drop in itertools.product(
+            MASKFINER.items(), (False, True)):
         overrides = {}
+        if attn_drop:
+            levels = len(port_config(preset, []).MODEL.MR.NAME)
+            overrides["MODEL.MR.ATTN_DROP_RATE"] = [0.1] * levels
         if name == "maskfiner_ot":
             overrides["MODEL.MR.DROP_RATE"] = [0.0] * 4
-            opts += ["MODEL.MR.DROP_RATE", str(overrides["MODEL.MR.DROP_RATE"])]
+        opts = ["TPU.COMPUTE_DTYPE", "float32"]
+        for k, v in overrides.items():
+            opts += [k, str(v)]
         cfg = port_config(preset, opts)
         for tag, ratios in (("r1", RATIO_ONE[preset]), ("final", None)):
             def one_step(device):
@@ -1048,28 +1357,31 @@ def phase_maskfiner_train_check(torch):
                             / max(t.abs().max().item(), 1e-30)
                             for k, t in ref_stats.items()] or [0.0])
             want = dict.fromkeys(counters(), 0)
-            want["cluster_attention_fwd"] = attn
-            want["cluster_attention_bwd"] = attn
+            want.update(attention_launches(0, attn, attn_drop=attn_drop))
             ok = (abs(loss - ref_loss) <= 1e-4 * abs(ref_loss)
                   and abs(gn - ref_gn) <= 1e-4 * abs(ref_gn)
                   and worst[0] <= 1e-3 and stat_err <= 1e-5
                   and launches == want and out["grads_finite"]
                   and math.isfinite(loss))
             emit({"phase": "maskfiner_train_check", "model": name,
-                  "ratios": tag, "dtype": "float32", "b": 2,
+                  "ratios": tag, "attn_drop": attn_drop,
+                  "dtype": "float32", "b": 2,
                   "overrides": overrides, "loss": loss, "loss_cpu": ref_loss,
                   "grad_norm": gn, "grad_norm_cpu": ref_gn,
                   "worst_grad_rel_err": worst[0], "worst_grad": worst[1],
                   "bn_stats": len(ref_stats), "bn_stats_rel_err": stat_err,
                   "launches_per_step": launches, "ok": ok})
             if not ok:
-                raise AssertionError(f"{name} ({tag}) GPU train step "
+                raise AssertionError(f"{name} ({tag}, attention dropout "
+                                     f"{attn_drop}) GPU train step "
                                      "disagrees with the CPU plain path or "
                                      "launched the wrong kernels")
 
 
 def counters():
-    """The launch counters of the kernel wrappers, by kernel name."""
+    """The launch counters of the kernel wrappers, by kernel (or mode)
+    name: (wrapper, counter attribute). A mode's launches are also counted
+    in its kernel's."""
     from ml_autofocusformermod_torch.ops.cluster_attention import (
         cluster_attention_backward, fused_cluster_attention,
     )
@@ -1077,20 +1389,42 @@ def counters():
         cluster_merge_backward, fused_cluster_merge, merge_inverse_index,
     )
 
-    return {"cluster_attention_fwd": fused_cluster_attention,
-            "cluster_attention_bwd": cluster_attention_backward,
-            "cluster_merge_fwd": fused_cluster_merge,
-            "cluster_merge_bwd": cluster_merge_backward,
-            "merge_inverse_index": merge_inverse_index}
+    return {"cluster_attention_fwd": (fused_cluster_attention, "launches"),
+            "cluster_attention_fwd_stats": (fused_cluster_attention,
+                                            "stats_launches"),
+            "cluster_attention_fwd_dropout": (fused_cluster_attention,
+                                              "drop_launches"),
+            "cluster_attention_bwd": (cluster_attention_backward,
+                                      "launches"),
+            "cluster_attention_bwd_saved": (cluster_attention_backward,
+                                            "saved_launches"),
+            "cluster_attention_bwd_dropout": (cluster_attention_backward,
+                                              "drop_launches"),
+            "cluster_merge_fwd": (fused_cluster_merge, "launches"),
+            "cluster_merge_bwd": (cluster_merge_backward, "launches"),
+            "merge_inverse_index": (merge_inverse_index, "launches")}
 
 
 def zero_counters():
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counters():
-    return {k: fn.launches for k, fn in counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+
+
+def attention_launches(fwd, steps, attn_drop=False):
+    """The attention counters of ``fwd`` forwards outside training and
+    ``steps`` training steps of ``attn`` calls each (pass attn-scaled
+    counts): every training forward writes statistics, every backward
+    takes them, and with ``attn_drop`` both drop."""
+    return {"cluster_attention_fwd": fwd + steps,
+            "cluster_attention_fwd_stats": steps,
+            "cluster_attention_fwd_dropout": steps if attn_drop else 0,
+            "cluster_attention_bwd": steps,
+            "cluster_attention_bwd_saved": steps,
+            "cluster_attention_bwd_dropout": steps if attn_drop else 0}
 
 
 def phase_train_check(torch):
@@ -1147,9 +1481,7 @@ def phase_train_check(torch):
     stat_err = max((stats[k] - t).abs().max().item()
                    / max(t.abs().max().item(), 1e-30)
                    for k, t in ref_stats.items())
-    want = {"cluster_attention_fwd": 10, "cluster_attention_bwd": 10,
-            "cluster_merge_fwd": 3, "cluster_merge_bwd": 3,
-            "merge_inverse_index": 3}
+    want = expect(0, 1)
     ok = (abs(loss - ref_loss) <= 1e-4 * abs(ref_loss)
           and abs(gn - ref_gn) <= 1e-4 * abs(ref_gn)
           and worst[0] <= 1e-3 and stat_err <= 1e-5
@@ -1184,8 +1516,7 @@ def expect(fwd_passes, train_steps=0):
     """Launches of the kernels for ``fwd_passes`` forwards outside
     training and ``train_steps`` train steps of AFF-Mini."""
     f = fwd_passes + train_steps
-    return {"cluster_attention_fwd": 10 * f,
-            "cluster_attention_bwd": 10 * train_steps,
+    return {**attention_launches(10 * fwd_passes, 10 * train_steps),
             "cluster_merge_fwd": 3 * f, "cluster_merge_bwd": 3 * train_steps,
             "merge_inverse_index": 3 * train_steps}
 
@@ -1328,26 +1659,34 @@ def phase_dropout(torch):
 
 def phase_maskfiner_train(torch, smi):
     """``main`` training UD-Mini 224 (the slice's main path) and OT 224 at
-    full width, bf16, b = 128, for two synthetic epochs of 4 steps: the
+    full width, bf16, b = 128, each as the preset configures it and again
+    with attention dropout 0.1 on every level (``--opts
+    MODEL.MR.ATTN_DROP_RATE``), for two synthetic epochs of 4 steps: the
     curriculum trains epoch 0 at ratio 1.0 and epoch 1 halfway to the
     final ratios (UD-Mini 0.9; OT 0.9 / 0.8 / 0.8). Per epoch the ratios,
     images/s after the first step, step ms and peak memory. Returns the
-    launches of each run by model."""
+    launches of each run by name (``<model>_train`` for the preset's,
+    ``<model>_train_attn_drop``)."""
     import os
     import shutil
     import tempfile
 
     from ml_autofocusformermod_torch.train import curriculum
 
-    by_model = {}
-    for name, (preset, attn, _) in MASKFINER.items():
-        final = port_config(preset, []).MODEL.MR.UPSCALE_RATIO
+    by_run = {}
+    for (name, (preset, attn, _)), dropping in itertools.product(
+            MASKFINER.items(), (False, True)):
+        mr = port_config(preset, []).MODEL.MR
+        final = mr.UPSCALE_RATIO
+        attn_drop = [0.1] * len(mr.NAME) if dropping else mr.ATTN_DROP_RATE
+        opts = (["--opts", "MODEL.MR.ATTN_DROP_RATE", str(attn_drop)]
+                if dropping else [])
         out = tempfile.mkdtemp(prefix="chip_smoke_mf_train_")
         try:
             result, secs, launches = run_main(torch, [
                 "--cfg", preset_path(preset), "--device", "cuda",
                 "--data-path", "no_dataset", "--batch-size", "128",
-                "--epochs", "2", "--output", out])
+                "--epochs", "2", "--output", out, *opts])
             train = result["train"]
             ckpt = os.path.exists(train["checkpoint"])
         finally:
@@ -1357,8 +1696,8 @@ def phase_maskfiner_train(torch, smi):
         # throughput protocol, the train steps, per epoch 512 validation
         # images / 128
         want = dict.fromkeys(counters(), 0)
-        want["cluster_attention_fwd"] = attn * (50 + 30 + steps + 2 * 4)
-        want["cluster_attention_bwd"] = attn * steps
+        want.update(attention_launches(attn * (50 + 30 + 2 * 4),
+                                       attn * steps, attn_drop=dropping))
         ratios = [e["ratios"] for e in epochs]
         ok = (launches == want and steps == 8 and ckpt
               and all(e["skipped_steps"] == 0 for e in epochs)
@@ -1370,9 +1709,11 @@ def phase_maskfiner_train(torch, smi):
                                                  train["val_loss"])))
         for e in epochs:
             emit({"phase": "maskfiner_train_epoch", "model": name,
-                  "batch": 128, "dtype": "bfloat16", **e, "card": smi})
+                  "attn_drop": dropping, "batch": 128, "dtype": "bfloat16",
+                  **e, "card": smi})
         emit({"phase": "maskfiner_train", "model": name, "batch": 128,
-              "dtype": "bfloat16", "steps": steps,
+              "dtype": "bfloat16", "attn_drop_rate": list(attn_drop),
+              "steps": steps,
               "img_per_s_after_first": [e["img_s_after_first"]
                                         for e in epochs],
               "step_ms_median": [1e3 * sorted(e["step_seconds"])[
@@ -1383,10 +1724,12 @@ def phase_maskfiner_train(torch, smi):
               "val_loss": train["val_loss"], "checkpoint_written": ckpt,
               "card": smi, "seconds": secs, "launches": launches, "ok": ok})
         if not ok:
-            raise AssertionError(f"{name} training run: launches "
+            raise AssertionError(f"{name} training run (attention "
+                                 f"dropout {dropping}): launches "
                                  f"{launches}, ratios {ratios}")
-        by_model[name] = launches
-    return by_model
+        by_run[name + "_train" + ("_attn_drop" if dropping else "")] = (
+            launches)
+    return by_run
 
 
 def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
@@ -1399,7 +1742,11 @@ def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
     b128 bf16 ``--throughput`` (the attention forward only) under
     ``maskfiner_ud_mini``, and UD-Mini b128 bf16 training (the attention
     forward and backward, per training step at the curriculum's first and
-    at the final ratios) under ``maskfiner_ud_mini_train``."""
+    at the final ratios) under ``maskfiner_ud_mini_train``. The dropout
+    modes run on the MaskFiner training path with attention dropout only:
+    their ``launches`` are the UD-Mini training run's with it
+    (``launches_from``). A kernel of the path that the run did not launch
+    fails the script."""
     def total(rs, key):
         return sum(r[key] * r["per_pass"] for r in rs)
 
@@ -1419,10 +1766,18 @@ def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
         rs = rows[name]
         mf = mf_rows if name == "cluster_attention_fwd" else []
         mft = mft_rows.get(name, [])
+        mf_path = name.endswith("_dropout")
+        ud_run = "maskfiner_ud_mini_train" + ("_attn_drop" if mf_path
+                                              else "")
+        n_launches = (mft_launches[ud_run][name] if mf_path
+                      else launches[name])
+        if n_launches == 0:
+            raise AssertionError(f"{name} was not launched on its path")
         entry = {
             "name": name, "route": "cuda", "source": CSRC + src,
             "replaces": replaces, "also_replaces": also,
-            "launches": launches[name],
+            "launches": n_launches,
+            "launches_from": ud_run if mf_path else "aff_mini_train",
             "max_abs_err": max(r["max_abs_err"] for r in rs + mf + mft),
             "ms": total(rs, "ms"), "device_ms": total(rs, "device_ms"),
             "plain_ms": total(rs, "plain_ms"),
@@ -1432,18 +1787,18 @@ def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
             "launches_by_path": {"aff_mini_train": launches[name],
                                  "maskfiner_ud_mini_throughput":
                                      mf_launches[name],
-                                 "maskfiner_ud_mini_train":
-                                     mft_launches["maskfiner_ud_mini"][name],
-                                 "maskfiner_ot_train":
-                                     mft_launches["maskfiner_ot"][name]},
+                                 **{run: mft_launches[run][name]
+                                    for run in mft_launches}},
         }
+        if name == "cluster_attention_bwd":
+            entry["launches_saved"] = launches["cluster_attention_bwd_saved"]
         if mf:
             entry["maskfiner_ud_mini"] = block(mf, mf_launches[name])
         for tag in ("r1", "final"):
             part = [r for r in mft if r["ratios"] == tag]
             if part:
                 entry[f"maskfiner_ud_mini_train_{tag}"] = block(
-                    part, mft_launches["maskfiner_ud_mini"][name])
+                    part, mft_launches[ud_run][name])
         out.append(entry)
     return {"kernels": out}
 
@@ -1456,7 +1811,10 @@ def main() -> int:
     fwd = phase_kernels(torch)
     bwd = phase_kernels_bwd(torch)
     rows = {"cluster_attention_fwd": fwd["attention"],
+            "cluster_attention_fwd_stats": fwd["stats"],
+            "cluster_attention_fwd_dropout": fwd["dropout"],
             "cluster_attention_bwd": bwd["attention"],
+            "cluster_attention_bwd_dropout": bwd["dropout"],
             **phase_merge(torch)}
     mf_rows = phase_maskfiner_kernels(torch)
     mft_rows, widest = phase_maskfiner_train_kernels(torch)

@@ -7,7 +7,7 @@ retained; auto-resume takes the newest checkpoint by mtime; a checkpoint
 holds ``(state, epoch, max_accuracy, rng state)``. ``state`` is the model's
 ``state_dict`` (parameters and BatchNorm buffers), the optimizer's state,
 the EMA copy and the step count; the rng state is that of the train
-state's three generators. Saves are synchronous and atomic (a temporary file
+state's four generators. Saves are synchronous and atomic (a temporary file
 renamed into place), so auto-resume never sees a partial checkpoint.
 """
 
@@ -37,7 +37,8 @@ def _payload(state, epoch: int, max_accuracy: float) -> dict:
         "max_accuracy": max_accuracy,
         "rng": {"drop": state.drop_generator.get_state(),
                 "mix": state.mix_generator.get_state(),
-                "upsample": state.upsample_generator.get_state()},
+                "upsample": state.upsample_generator.get_state(),
+                "attn_drop": state.attn_drop_generator.get_state()},
     }
 
 
@@ -79,6 +80,8 @@ def load_checkpoint(path: str, state) -> Tuple[object, int, float]:
     state.mix_generator.set_state(ckpt["rng"]["mix"].cpu())
     if "upsample" in ckpt["rng"]:  # written before MaskFiner training
         state.upsample_generator.set_state(ckpt["rng"]["upsample"].cpu())
+    if "attn_drop" in ckpt["rng"]:  # written before attention dropout
+        state.attn_drop_generator.set_state(ckpt["rng"]["attn_drop"].cpu())
     return state, int(ckpt["epoch"]), float(ckpt["max_accuracy"])
 
 

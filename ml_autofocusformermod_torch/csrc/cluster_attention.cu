@@ -13,6 +13,13 @@
 //   blank   = q_i . blank_k[:, hi]
 //   out_i   = (sum_s e^(logit_s - mx) v_t + e^(blank - mx) blank_v[hi]) / denom
 // Padded slots are excluded from the softmax (not weighted by exp(-100)).
+// Optionally (the saved-stats mode, JAX _fca_fwd) the softmax max mx and
+// denominator denom of each (query, head) go to stats (b, n, 2h) f32 (lane
+// hi and h + hi, as JAX's _fwd_kernel writes them, clusten_pallas.py:
+// 754-757), for the backward; and (attention dropout, JAX _fca_drop) each
+// numerator e^(.) of a slot or the blank is multiplied by its keep/scale
+// drop_keep(seed, image, head, query row i, token t or 65535) before P.V,
+// the denominator undropped (clusten_pallas.py:940-957).
 // q is pre-scaled; kv holds per head k then v: channel (hi, 0|1, c_).
 //
 // What bounds it on the H100: the bytes are q, kv and out once each
@@ -43,11 +50,11 @@ namespace {
 
 using namespace ca;
 
-template <typename E, bool VEC, bool WIDE>
+template <typename E, bool VEC, bool WIDE, bool DROP>
 __global__ void __launch_bounds__(kThreads, 1)
 cluster_attention_fwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Block<E, VEC, false, WIDE> blk(p, smem);
+  Block<E, VEC, false, WIDE, DROP> blk(p, smem);
   blk.begin();
   blk.attend();
   const int c = blk.c, c_ = blk.c_, cw = blk.cws, w = blk.G * cw;
@@ -62,6 +69,15 @@ cluster_attention_fwd_kernel(const __grid_constant__ Params p) {
     out[static_cast<long long>(i) * c + g * c_ + ch] =
         from_f<E>(o / blk.l_[blk.st_at(g, i)]);
   }
+  if (p.stats != nullptr && blk.sl == 0) {  // one channel slice writes them
+    for (int e = threadIdx.x; e < blk.G * blk.rows; e += kThreads) {
+      const int g = e / blk.rows, i = e - g * blk.rows;
+      float* st = p.stats +
+                  (static_cast<long long>(blk.bi) * p.n + blk.q0 + i) * 2 * p.h;
+      st[blk.head(g)] = blk.m_[blk.st_at(g, i)];
+      st[p.h + blk.head(g)] = blk.l_[blk.st_at(g, i)];
+    }
+  }
 }
 
 template <typename E>
@@ -70,10 +86,19 @@ int launch(Params& p, int esize, bool vec, cudaStream_t stream) {
   if (!apply_plan(p, esize, false, &bytes))
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const bool wide = wide_plan(p);
-  auto kernel = vec ? (wide ? cluster_attention_fwd_kernel<E, true, true>
-                            : cluster_attention_fwd_kernel<E, true, false>)
-                    : (wide ? cluster_attention_fwd_kernel<E, false, true>
-                            : cluster_attention_fwd_kernel<E, false, false>);
+  // dropout only with vectorised rows (c_ % 8 == 0, aligned), as the JAX
+  // package's fused dropout requires c_ % 8 == 0
+  void (*kernel)(Params) = nullptr;
+  if (p.drop && vec)
+    kernel = wide ? cluster_attention_fwd_kernel<E, true, true, true>
+                  : cluster_attention_fwd_kernel<E, true, false, true>;
+  else if (!p.drop && vec)
+    kernel = wide ? cluster_attention_fwd_kernel<E, true, true, false>
+                  : cluster_attention_fwd_kernel<E, true, false, false>;
+  else if (!p.drop)
+    kernel = wide ? cluster_attention_fwd_kernel<E, false, true, false>
+                  : cluster_attention_fwd_kernel<E, false, false, false>;
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -85,13 +110,17 @@ int launch(Params& p, int esize, bool vec, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, kv and out). ucl, ucount, nidx:
 // the tile metadata (ops/cluster_attention.py::tile_metadata), batch-
-// broadcast when meta_batched is 0. Returns a cudaError_t.
+// broadcast when meta_batched is 0. stats: (b, n, 2h) f32, written when
+// not null. drop: 1 for attention dropout with drop_seed, drop_thresh
+// and drop_scale (drop_keep), for c_ % 8 == 0 and 16-byte aligned q and
+// kv. Returns a cudaError_t.
 extern "C" int cluster_attention_fwd(
     const void* q, const void* kv, const void* pos, const void* ucl,
     const void* ucount, const void* nidx, const void* pe_kernel,
     const void* pe_bias, const void* blank_k, const void* blank_v, void* out,
-    int b, int n, int h, int c_, int nnc, int cs, int rel_width,
+    void* stats, int b, int n, int h, int c_, int nnc, int cs, int rel_width,
     int clamp_width, long long pos_bstride, int meta_batched, int dtype,
+    int drop, int drop_seed, int drop_thresh, float drop_scale,
     void* stream) {
   if (static_cast<long long>(b) * n == 0) return cudaSuccess;
   Params p = {};
@@ -106,6 +135,11 @@ extern "C" int cluster_attention_fwd(
   p.blank_k = static_cast<const float*>(blank_k);
   p.blank_v = static_cast<const float*>(blank_v);
   p.out = out;
+  p.stats = static_cast<float*>(stats);
+  p.drop = drop;
+  p.drop_seed = drop_seed;
+  p.drop_thresh = drop_thresh;
+  p.drop_scale = drop_scale;
   p.b = b;
   p.n = n;
   p.h = h;

@@ -41,6 +41,15 @@
 // compiled apart (WIDE false), and only a tile whose rows repeat a
 // cluster walks its slots with the checks repeats need, so that the
 // AFF shapes pay nothing for the generality.
+//
+// Two modes of the JAX kernels ride on the same block. Saved statistics:
+// the forward writes each row's softmax max and denominator, and the
+// backward reads them (cluster_attention_bwd.cu). Attention dropout: the
+// probabilities of the slots and of the blank are multiplied by a
+// keep/scale that drop_keep computes in registers from the global (image,
+// head, query row, kv token); the denominator is not dropped. Dropout is
+// a template parameter of the block (DROP): a launch without it compiles
+// to a block without the hash, whose registers a row pass cannot spare.
 
 #pragma once
 
@@ -124,6 +133,28 @@ __device__ __forceinline__ int row_max_i(int v) {
 }
 
 __host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
+
+constexpr int kBlankCol = 65535;  // the blank slot's kv column in the hash
+
+// The keep/scale of attention-probability dropout at (image, head, query
+// row, kv column): the JAX package's _drop_keep (clusten_pallas.py:708), a
+// lowbias32-style hash whose int32 arithmetic wraps, here as uint32 (the
+// constants are its negative int32 multipliers mod 2^32). 0 below the
+// threshold int(rate * (2^31 - 1)), else scale = float32(1 / (1 - rate)).
+__device__ __forceinline__ float drop_keep(int seed, int img, int head,
+                                           int row, int col, int thresh,
+                                           float scale) {
+  uint32_t x = static_cast<uint32_t>(row) * 65536u +
+               static_cast<uint32_t>(col) + static_cast<uint32_t>(seed) +
+               2654435761u * static_cast<uint32_t>(img) +
+               2246822519u * static_cast<uint32_t>(head);
+  x ^= x >> 16;
+  x *= 2146121005u;
+  x ^= x >> 15;
+  x *= 2221747851u;
+  x ^= x >> 16;
+  return static_cast<int>(x & 0x7fffffffu) >= thresh ? scale : 0.f;
+}
 
 // ------------------------------------------------------------ layout ----
 
@@ -468,7 +499,11 @@ struct Params {
   const float* blank_k;    // (c_, h)
   const float* blank_v;    // (h, c_)
   void* out;               // forward: (b, n, c) in q's dtype
+  float* stats;  // (b, n, 2h) f32 softmax max (lane hi) and denominator
+                 // (lane h + hi): written by the forward when not null,
+                 // read by the backward in the saved mode
   const void* g_out;       // backward: (b, n, c)
+  const void* outp;        // backward, saved mode: the forward's output
   void* dq;                // backward: (b, n, c) in q's dtype
   float* dkv_part;  // backward: (b, ntiles, ucap, 2c) f32 tile partials
   float* dparams;   // backward: (b * ntiles, 6h + 2c) f32 block partials
@@ -479,6 +514,8 @@ struct Params {
   long long pos_bstride;  // elements; 0 when pos is batch-broadcast
   int meta_batched;       // 0 when the metadata is batch-broadcast
   int ucap;               // backward: union positions per tile in dkv_part
+  int drop, drop_seed, drop_thresh;  // attention dropout (drop_keep)
+  float drop_scale;
 };
 
 // The launch grid: (image, tile) x (head group, channel slice).
@@ -512,9 +549,11 @@ inline bool wide_plan(const Params& p) {
 // factor or the backward's sum of p dp (then S = g . out), bl_ the blank
 // logit, and dlb_ and pb_ of the backward's blank token (pb_ holds
 // g . blank_v until then).
-template <typename E, bool VEC, bool BWD, bool WIDE>
+template <typename E, bool VEC, bool BWD, bool WIDE, bool DROP>
 struct Block {
+  using Elem = E;
   static constexpr bool TC = std::is_same<E, bf16>::value;
+  static constexpr bool Drop = DROP;
   const Params& P;
   Layout L;
   E *sq, *sg, *sk, *sv, *sp, *sdl;
@@ -598,6 +637,14 @@ struct Block {
   }
 
   __device__ int head(int g) const { return hg * G + g; }
+  // the dropout keep/scale of (head g, row i) at kv token tok (kBlankCol:
+  // the blank); 1 without dropout
+  __device__ float keep_at(int g, int i, int tok) const {
+    if constexpr (DROP)
+      return drop_keep(P.drop_seed, bi, head(g), q0 + i, tok, P.drop_thresh,
+                       P.drop_scale);
+    return 1.f;
+  }
   __device__ bool keep() const { return !WIDE || P.keep; }
   __device__ int nch() const { return WIDE ? P.nch : 1; }
   // entry e of the tile's rows' union indices: shared memory when they fit
@@ -763,8 +810,10 @@ struct Block {
     for (int e = threadIdx.x; e < G * kTile * P.CP; e += kThreads) {
       const int row = e / P.CP, ch = e - row * P.CP, g = row / kTile;
       float v = 0.f;
-      if (!BWD && ch < cws)
+      if (!BWD && ch < cws) {
         v = one ? sbv[g * c_ + ch] : P.blank_v[head(g) * c_ + chs + ch];
+        if constexpr (DROP) v *= keep_at(g, row - g * kTile, kBlankCol);
+      }
       so[row * L.ldo + ch] = v;
     }
     __syncthreads();
@@ -949,8 +998,9 @@ struct Block {
   // each over its share of the row's slots: the logit (bias from the
   // geometry, computed once per slot for all heads) replaces q.k in
   // place; (m, l) take the online update. Forward: P = exp(logit - m) at
-  // the slots, 0 elsewhere, and a_ = exp(m_old - m_new). Backward (first
-  // pass): a_ gathers the sum of exp(logit - m) dP.
+  // the slots (times the dropout keep/scale), 0 elsewhere, and a_ =
+  // exp(m_old - m_new). Backward (first pass): a_ gathers the sum of
+  // exp(logit - m) dP (dP times the keep/scale).
   __device__ void softmax_chunk() {
     const int i = threadIdx.x / kRow, q = threadIdx.x % kRow;
     if constexpr (!BWD) zero_row(sp, i, q);
@@ -981,15 +1031,17 @@ struct Block {
     }
     __syncwarp();
     for_slots(i, q, [&](int x, int pos, float mult) {
+      const int tok = stok[pos];
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
         if (g < G) {
           const float e = mult * expf(lrow(g, i)[x] - mn[g]);
           sm[g] += e;
           if constexpr (BWD) {
-            sd[g] += e * dprow(g, i)[x];
+            sd[g] += DROP ? e * dprow(g, i)[x] * keep_at(g, i, tok)
+                          : e * dprow(g, i)[x];
           } else {
-            prow(g, i)[pos] = from_f<E>(e);
+            prow(g, i)[pos] = from_f<E>(DROP ? e * keep_at(g, i, tok) : e);
           }
         }
       }

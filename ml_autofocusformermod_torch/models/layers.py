@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import cluster_attention as attention_ops
 from ..ops.cluster_attention import fused_cluster_attention, offset_features
 from ..ops.cluster_gather import gather_clusters, gather_rows
 from ..ops.cluster_merge import fused_cluster_merge
@@ -150,8 +151,14 @@ class ClusterAttention(nn.Module):
     or, in global mode, dense attention over all tokens (plain torch).
 
     ``attn_drop`` drops attention probabilities in training mode: in the
-    global mode with :class:`Dropout`; in the local mode the fused kernels do
-    not port it yet and raise (ROADMAP.md queue B item 7).
+    global mode with :class:`Dropout`; in the local mode inside the fused
+    kernels, with one seed per call drawn by
+    ``ops/cluster_attention.py::draw_drop_seed`` from
+    ``attn_drop_generator`` (a CPU ``torch.Generator`` that the trainer
+    owns; torch's default CPU generator when None), as the JAX layer draws
+    one from its "dropout" stream. The kernels' masks are a hash of the
+    seed and the coordinates, so one generator state drops the same
+    probabilities on every device.
 
     ``clamp_width`` (MixRes: the rel-pos table width, 0 for AFF) clamps the
     local mode's relative coordinates inside the kernel; in the global mode
@@ -164,6 +171,7 @@ class ClusterAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.attn_drop = Dropout(attn_drop)
+        self.attn_drop_generator: Optional[torch.Generator] = None
         self.proj_drop = Dropout(proj_drop)
         self.rel_pos_width = rel_pos_width
         self.clamp_width = clamp_width
@@ -184,13 +192,15 @@ class ClusterAttention(nn.Module):
         q = self.q(feat) * c_**-0.5
         kv = self.kv(feat)
         if not global_attn:
+            rate = self.attn_drop.p if self.training else 0.0
+            seed = (attention_ops.draw_drop_seed(self.attn_drop_generator)
+                    if rate > 0.0 else None)
             out = fused_cluster_attention(
                 q.contiguous(), kv.contiguous(), nearest_cluster, pos,
                 self.pos_embed.weight.t(), self.pos_embed.bias,
                 self.blank_k.reshape(h, c_).t(), self.blank_v.reshape(h, c_),
                 h, cluster_size, self.rel_pos_width, self.clamp_width,
-                drop_rate=self.attn_drop.p if self.training else 0.0,
-                meta=tile_meta,
+                drop_rate=rate, drop_seed=seed, meta=tile_meta,
             )
         else:
             dt = self.compute_dtype

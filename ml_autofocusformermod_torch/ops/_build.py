@@ -26,7 +26,8 @@ __all__ = ["SOURCES", "build_all", "library"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("cluster_attention", "cluster_attention_bwd", "cluster_merge",
+SOURCES = ("cluster_attention", "cluster_attention_bwd",
+           "cluster_attention_bwd_saved", "cluster_merge",
            "cluster_merge_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -9,6 +9,17 @@ PyTorch version, on a CPU tensor; its backward
 on a CUDA tensor and runs :func:`cluster_attention_backward_reference` on a
 CPU tensor. There is no fallback between the two.
 
+Two modes of the JAX kernels are kept. The saved-stats mode (JAX
+``_fca_fwd``, the default; ``MLAFF_BWD_SAVED=0`` selects the recompute
+backward): the forward also writes each row's softmax max and denominator
+(``stats``, (b, n, 2h) f32 in JAX's lane layout) and the backward takes
+them and the forward's output instead of recomputing the softmax, with
+S = rowsum(g * out). Attention-probability dropout (JAX ``_fca_drop``):
+the probabilities of the slots and of the blank are multiplied by the
+keep/scale of :func:`drop_keep`, a stateless hash of the global (image,
+head, query row, kv token) that the backward replays; the denominator is
+not dropped.
+
 The kernels work on tiles of :data:`TILE` consecutive query rows: a block
 stages the union of its tile's neighbour clusters in shared memory.
 :func:`tile_metadata` computes that union per tile once per stage (the
@@ -21,7 +32,10 @@ compute it themselves.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+import os
+from typing import NamedTuple, Optional
+
+import numpy as np
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
@@ -31,12 +45,85 @@ from .cluster_gather import cluster_token_index, gather_clusters
 
 __all__ = ["fused_cluster_attention", "cluster_attention_reference",
            "cluster_attention_backward",
-           "cluster_attention_backward_reference", "offset_features",
+           "cluster_attention_backward_reference", "cluster_attention_forward",
+           "offset_features", "drop_keep", "draw_drop_seed", "saved_mode",
            "TILE", "TileMeta", "tile_metadata", "constant_tile_metadata",
-           "union_rows"]
+           "union_rows", "BLANK_COL"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64  # query rows per kernel tile, csrc/cluster_attention_tile.cuh::kTile
+BLANK_COL = 65535  # the hash's kv column of the blank slot
+_MASK32 = 0xFFFFFFFF
+
+
+def saved_mode() -> bool:
+    """Whether the backward takes the forward's saved softmax statistics
+    (the default) or recomputes them (``MLAFF_BWD_SAVED=0``, the JAX
+    package's switch), read at each forward."""
+    return os.environ.get("MLAFF_BWD_SAVED", "1") == "1"
+
+
+def _mul32(x, m):
+    """``x * m mod 2**32`` for int64 ``x`` in [0, 2**32) and a constant
+    ``m`` in [0, 2**32), without overflowing int64."""
+    lo, hi = m & 0xFFFF, m >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _MASK32
+
+
+def _drop_params(rate):
+    """(threshold, scale) of a drop rate, in Python doubles as the JAX
+    package computes them: a hash below the threshold drops, a kept
+    probability is scaled by float32(1 / (1 - rate))."""
+    return (int(rate * 2147483647.0),
+            float(np.float32(1.0 / (1.0 - rate))))
+
+
+def drop_keep(seed, img, head, rows, cols, rate):
+    """The keep/scale of attention-probability dropout at global (image,
+    head, query row, kv column): a bit-exact copy of the JAX package's
+    ``clusten_pallas.py::_drop_keep`` (lowbias32-style hash in int32
+    arithmetic that wraps). ``img``, ``head``, ``rows`` and ``cols`` are
+    integer tensors (or ints) that broadcast together; the column of the
+    blank slot is :data:`BLANK_COL`. Returns float32: 0 where dropped,
+    float32(1 / (1 - rate)) where kept."""
+    as_t = [t if torch.is_tensor(t) else torch.tensor(t)
+            for t in (img, head, rows, cols)]
+    img, head, rows, cols = (t.long() for t in as_t)
+    # int32 wrap-around as uint32 in int64: every step masked to 32 bits
+    x = (rows * 65536 + cols + (int(seed) & _MASK32)
+         + img * (-1640531535 & _MASK32)
+         + head * (-2048144777 & _MASK32)) & _MASK32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 2146121005)
+    x = x ^ (x >> 15)
+    x = _mul32(x, -2073219445 & _MASK32)
+    x = x ^ (x >> 16)
+    thresh, scale = _drop_params(rate)
+    keep = (x & 0x7FFFFFFF) >= thresh
+    return torch.where(keep, torch.tensor(scale, dtype=torch.float32),
+                       torch.tensor(0.0, dtype=torch.float32))
+
+
+def draw_drop_seed(generator: Optional[torch.Generator] = None) -> int:
+    """One dropout seed in [0, 2**31 - 1), as the JAX layer's
+    ``randint(0, iinfo(int32).max)``, from a CPU ``generator`` (torch's
+    default CPU generator when None): a host integer, so the kernels take
+    it by value, and the same seed on every device."""
+    return int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+
+
+def _drop_planes(ncc, cs, num_heads, drop, device, img0=0):
+    """The keep/scale planes of ``drop = (rate, seed)``: of the slots, (b,
+    h, n, m), and of the blank, (b, h, n, 1), float32; the images are
+    ``img0 + [0, b)`` of the batch."""
+    rate, seed = drop
+    b, n, _ = ncc.shape
+    img = torch.arange(img0, img0 + b, device=device)[:, None, None, None]
+    head = torch.arange(num_heads, device=device)[None, :, None, None]
+    rows = torch.arange(n, device=device)[None, None, :, None]
+    cols = cluster_token_index(ncc, cs)[:, None]  # b 1 n m
+    return (drop_keep(seed, img, head, rows, cols, rate),
+            drop_keep(seed, img, head, rows, BLANK_COL, rate))
 
 
 class TileMeta(NamedTuple):
@@ -121,11 +208,14 @@ def _rel_feat(pos, ncc, cs, rel_width, clamp_width):
 
 
 def _softmax_parts(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, num_heads,
-                   cs, rel_width, clamp_width):
+                   cs, rel_width, clamp_width, stats=None):
     """The pieces the forward and backward share, in the accumulation type
     (f32, or f64 for f64 inputs): head-split q, gathered k and v, the
-    rel-pos features, the padding mask and the normalised probabilities of
-    the slots and of the blank token (``clusten_pallas.py:3080-3106``)."""
+    rel-pos features, the normalised probabilities of the slots and of the
+    blank token (``clusten_pallas.py:3080-3106``; 0 at padded slots), and
+    the softmax max and denominator, (b, h, n, 1) each. With ``stats``
+    (b, n, 2h), a forward's saved max (lanes [0, h)) and denominator
+    (lanes [h, 2h)) take the place of the row's own."""
     b, n, c = q.shape
     h = num_heads
     c_ = c // h
@@ -147,51 +237,85 @@ def _softmax_parts(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, num_heads,
     logits = torch.einsum("bhic,bhimc->bhim", qh, kg) + bias
     logits = logits.masked_fill(~pad_ok, float("-inf"))
     blank = torch.einsum("bhic,ch->bhi", qh, blank_k.to(acc))[..., None]
-    mx = torch.maximum(logits.amax(-1, keepdim=True), blank)
+    if stats is None:
+        mx = torch.maximum(logits.amax(-1, keepdim=True), blank)
+    else:
+        mx = stats[..., :h].to(acc).permute(0, 2, 1)[..., None]
     p = torch.exp(logits - mx)  # exactly 0 at padded slots
     pb = torch.exp(blank - mx)
-    denom = p.sum(-1, keepdim=True) + pb
-    return qh, kg, vg, feat5, p / denom, pb / denom
+    if stats is None:
+        denom = p.sum(-1, keepdim=True) + pb
+    else:
+        denom = stats[..., h:].to(acc).permute(0, 2, 1)[..., None]
+    return qh, kg, vg, feat5, p / denom, pb / denom, mx, denom
 
 
 def cluster_attention_reference(q, kv, ncc, pos, pe_kernel, pe_bias,
                                 blank_k, blank_v, num_heads, cs, rel_width,
-                                clamp_width=0):
+                                clamp_width=0, drop=None, want_stats=False,
+                                img0=0):
     """Plain PyTorch version of the forward, in f32 (f64 for f64 inputs).
 
     Follows the algebra of the JAX package's oracle
     (``clusten_pallas.py:3080-3106``): gathered k/v, rel-pos bias, padded
-    slots excluded from a joint softmax with the blank logit. Returns q's
-    dtype.
+    slots excluded from a joint softmax with the blank logit. With ``drop
+    = (rate, seed)`` the normalised probabilities of the slots and of the
+    blank are multiplied by their :func:`drop_keep` (JAX ``_fwd_kernel``,
+    ``:940-957``). Returns q's dtype; with ``want_stats`` also the
+    softmax statistics (b, n, 2h): per head the max over the slots and the
+    blank logit (lane hi) and the denominator, blank included (lane
+    h + hi), in the accumulation type, as JAX's stats output. ``img0``:
+    the index in the batch of the first image (the masks of a batch
+    chunk).
     """
     b, n, c = q.shape
-    _, _, vg, _, p, pb = _softmax_parts(
+    _, _, vg, _, p, pb, mx, denom = _softmax_parts(
         q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, num_heads, cs,
         rel_width, clamp_width)
+    if drop is not None:
+        keep, keep_b = _drop_planes(ncc, cs, num_heads, drop, q.device,
+                                    img0)
+        p = p * keep.to(p.dtype)
+        pb = pb * keep_b.to(p.dtype)
     out = torch.einsum("bhim,bhimc->bhic", p, vg)
     out = out + pb * blank_v.to(p.dtype)[None, :, None, :]
-    return out.permute(0, 2, 1, 3).reshape(b, n, c).to(q.dtype)
+    out = out.permute(0, 2, 1, 3).reshape(b, n, c).to(q.dtype)
+    if not want_stats:
+        return out
+    stats = torch.cat([mx[..., 0], denom[..., 0]], dim=1)  # b 2h n
+    return out, stats.permute(0, 2, 1).contiguous()
 
 
 def cluster_attention_backward_reference(q, kv, ncc, pos, pe_kernel,
                                          pe_bias, blank_k, blank_v, g_out,
                                          num_heads, cs, rel_width,
-                                         clamp_width=0):
+                                         clamp_width=0, saved=None,
+                                         drop=None, img0=0):
     """Plain PyTorch version of the backward, formula for formula the JAX
     package's oracle backward (``clusten_pallas.py:3080-3149``).
 
+    ``saved = (out, stats)``, the forward's output and statistics (the
+    saved-stats mode, JAX ``_fca_fwd``): the probabilities come from the
+    saved max and denominator, and S = rowsum(g * out) (the delta trick)
+    replaces sum_s p_s dp_s + pb dpb. ``drop = (rate, seed)`` replays the
+    forward's dropout: with M the keep/scale, dV = (P M)^T g, dP' = M (g
+    V^T) and dL = P (dP' - S), the blank alike; ``img0`` as for the
+    forward.
+
     Returns ``(dq, dkv, d_pe_kernel, d_pe_bias, d_blank_k, d_blank_v)``,
-    each in its input's dtype. The scatter into dkv is an ``index_add_``
-    over the slots' token rows (deterministic on the CPU).
+    each in its input's dtype. d_pe_bias is summed as -sum(dlb), the
+    oracle's sum of dL over the slots without its cancellation. The
+    scatter into dkv is an ``index_add_`` over the slots' token rows
+    (deterministic on the CPU).
     """
     b, n, c = q.shape
     h = num_heads
     c_ = c // h
     nnc = ncc.shape[-1]
     m = nnc * cs
-    qh, kg, vg, feat5, p, pb = _softmax_parts(
+    qh, kg, vg, feat5, p, pb, _, _ = _softmax_parts(
         q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, num_heads, cs,
-        rel_width, clamp_width)
+        rel_width, clamp_width, stats=None if saved is None else saved[1])
     acc = p.dtype
     goh = g_out.to(acc).reshape(b, n, h, c_).permute(0, 2, 1, 3)
     bk = blank_k.to(acc).t()  # (h, c_)
@@ -199,16 +323,32 @@ def cluster_attention_backward_reference(q, kv, ncc, pos, pe_kernel,
 
     dp = torch.einsum("bhic,bhimc->bhim", goh, vg)
     dpb = torch.einsum("bhic,hc->bhi", goh, bv)[..., None]
-    s = (dp * p).sum(-1, keepdim=True) + dpb * pb
+    pk, pbk = p, pb  # the probabilities as the output weighed them
+    if drop is not None:
+        keep, keep_b = _drop_planes(ncc, cs, num_heads, drop, q.device,
+                                    img0)
+        dp = dp * keep.to(acc)
+        dpb = dpb * keep_b.to(acc)
+        pk = p * keep.to(acc)
+        pbk = pb * keep_b.to(acc)
+    if saved is None:
+        s = (dp * p).sum(-1, keepdim=True) + dpb * pb
+    else:
+        outh = saved[0].to(acc).reshape(b, n, h, c_).permute(0, 2, 1, 3)
+        s = (goh * outh).sum(-1, keepdim=True)
     dlogits = p * (dp - s)  # zero at padded slots, where p is 0
     dlb = pb * (dpb - s)  # b h n 1
 
     dqh = torch.einsum("bhim,bhimc->bhic", dlogits, kg)
     dqh = dqh + dlb * bk[None, :, None, :]
     d_pe_kernel = torch.einsum("bhnm,bnmf->fh", dlogits, feat5)
-    d_pe_bias = dlogits.sum(dim=(0, 2, 3))
+    # the sum of dl over the slots is -dlb per row (sum p + pb = 1): summed
+    # so, as the kernel sums it, without the cancellation of the slots'
+    # terms (in the saved mode the two differ by pb times the rounding of
+    # the stored output in S)
+    d_pe_bias = -dlb.sum(dim=(0, 2, 3))
     d_blank_k = torch.einsum("bhic,bhi->ch", qh, dlb[..., 0])
-    d_blank_v = torch.einsum("bhi,bhic->hc", pb[..., 0], goh)
+    d_blank_v = torch.einsum("bhi,bhic->hc", pbk[..., 0], goh)
 
     # scatter-add of the slots' dk / dv rows onto their tokens; padded slots
     # point past n into the zero-padded tail, which is cut off
@@ -216,7 +356,7 @@ def cluster_attention_backward_reference(q, kv, ncc, pos, pe_kernel,
     rows = cluster_token_index(ncc, cs)  # b n m
     rows = rows + torch.arange(b, device=rows.device)[:, None, None] * np_
     dkg = qh[:, :, :, None, :] * dlogits[..., None]  # b h n m c_
-    dvg = p[..., None] * goh[:, :, :, None, :]
+    dvg = pk[..., None] * goh[:, :, :, None, :]
     src = torch.stack([dkg, dvg], dim=-2)  # b h n m 2 c_
     src = src.permute(0, 2, 3, 1, 4, 5).reshape(b * n * m, h, 2, c_)
     dkv = torch.zeros(b * np_, h, 2, c_, dtype=acc, device=q.device)
@@ -311,15 +451,42 @@ def _launch(fn, name, *args):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def _attention_forward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
-                       blank_v, num_heads, cs, rel_width, clamp_width,
-                       meta=None):
+def _check_drop(c_):
+    if c_ % 8:
+        raise ValueError("attention dropout requires c_ % 8 == 0, as the "
+                         "JAX package's fused dropout does")
+
+
+def _drop_args(drop, c_, *rows):
+    """The kernels' dropout scalars (on, seed as int32, threshold, scale)
+    of ``drop = (rate, seed)`` or None; ``rows``: the tensors whose rows
+    the kernels then read in 16-byte pieces, which must be aligned."""
+    if drop is None:
+        return [0, 0, 0, 1.0]
+    _check_drop(c_)
+    if any(t.data_ptr() % 16 for t in rows):
+        raise ValueError("attention dropout on the card needs 16-byte "
+                         "aligned q, kv, g_out and out")
+    rate, seed = drop
+    seed = (int(seed) + 2**31) % 2**32 - 2**31
+    return [1, seed, *_drop_params(rate)]
+
+
+def cluster_attention_forward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
+                              blank_v, num_heads, cs, rel_width,
+                              clamp_width=0, meta=None, drop=None,
+                              want_stats=False):
     """The forward: the CUDA kernel on a CUDA tensor (counted in
-    ``fused_cluster_attention.launches``), the plain version on the CPU."""
+    ``fused_cluster_attention.launches``, and in its ``stats_launches``
+    and ``drop_launches`` where it writes the statistics or drops), the
+    plain version on the CPU. ``drop = (rate, seed)`` with a host integer
+    seed; ``want_stats``: also return the (b, n, 2h) f32 statistics of
+    :func:`cluster_attention_reference`."""
     if q.device.type == "cpu":
         return cluster_attention_reference(
             q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v,
-            num_heads, cs, rel_width, clamp_width)
+            num_heads, cs, rel_width, clamp_width, drop=drop,
+            want_stats=want_stats)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda_args(q, kv, ncc, pos, num_heads)
@@ -328,41 +495,54 @@ def _attention_forward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
     meta, batched = _meta_args(meta, ncc)
     params = _small_params(q, h, pe_kernel, pe_bias, blank_k, blank_v)
     out = torch.empty_like(q)
+    stats = (torch.empty((b, n, 2 * h), dtype=torch.float32, device=q.device)
+             if want_stats else None)
     fn = _build.library("cluster_attention").cluster_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
-                   + [ctypes.c_longlong] + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch(fn, "cluster_attention_fwd", q.data_ptr(), kv.data_ptr(),
                 pos.data_ptr(), *(t.data_ptr() for t in meta),
-                *(t.data_ptr() for t in params), out.data_ptr(), b, n, h,
+                *(t.data_ptr() for t in params), out.data_ptr(),
+                None if stats is None else stats.data_ptr(), b, n, h,
                 c // h, ncc.shape[2], cs, int(rel_width), int(clamp_width),
-                pos.stride(0), batched, _DTYPE_CODE[q.dtype], stream)
+                pos.stride(0), batched, _DTYPE_CODE[q.dtype],
+                *_drop_args(drop, c // h, q, kv, out), stream)
     fused_cluster_attention.launches += 1
-    return out
+    fused_cluster_attention.stats_launches += want_stats
+    fused_cluster_attention.drop_launches += drop is not None
+    return (out, stats) if want_stats else out
 
 
 def cluster_attention_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
                                blank_v, g_out, num_heads, cs, rel_width,
-                               clamp_width=0, meta=None):
+                               clamp_width=0, meta=None, saved=None,
+                               drop=None):
     """Gradients of the fused attention with respect to ``q, kv, pe_kernel,
     pe_bias, blank_k, blank_v``, each in its input's dtype.
 
-    On a CUDA tensor this launches ``csrc/cluster_attention_bwd.cu`` (and
-    adds one to ``cluster_attention_backward.launches``), with ``meta``
-    the :class:`TileMeta` of ``ncc`` (computed when None); on a CPU tensor
-    it runs :func:`cluster_attention_backward_reference`. The CUDA path
-    adds no float atomics: a repeated call gives the same bits. Its
-    scratch is the tiles' dk/dv partials, ``b * ceil(n / TILE) *``
+    ``saved = (out, stats)``: the forward's output and statistics, the
+    saved-stats mode; None recomputes them. ``drop = (rate, seed)``:
+    the forward's dropout, replayed.
+
+    On a CUDA tensor this launches ``csrc/cluster_attention_bwd_saved.cu``
+    with ``saved``, ``csrc/cluster_attention_bwd.cu`` without (and
+    adds one to ``cluster_attention_backward.launches``, and to its
+    ``saved_launches`` and ``drop_launches`` in those modes), with
+    ``meta`` the :class:`TileMeta` of ``ncc`` (computed when None); on a
+    CPU tensor it runs :func:`cluster_attention_backward_reference`. The
+    CUDA path adds no float atomics: a repeated call gives the same bits.
+    Its scratch is the tiles' dk/dv partials, ``b * ceil(n / TILE) *``
     :func:`union_rows` ``* 2c`` f32, and one row of ``6h + 2c`` f32
     parameter sums per (image, tile), summed here in a fixed order.
     """
     if q.device.type == "cpu":
         return cluster_attention_backward_reference(
             q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, g_out,
-            num_heads, cs, rel_width, clamp_width)
+            num_heads, cs, rel_width, clamp_width, saved=saved, drop=drop)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda_args(q, kv, ncc, pos, num_heads)
@@ -374,6 +554,16 @@ def cluster_attention_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
     b, n, c = q.shape
     h = num_heads
     c_ = c // h
+    if saved is not None:
+        out, stats = saved
+        if (out.dtype != q.dtype or out.shape != q.shape
+                or out.device != q.device or not out.is_contiguous()):
+            raise ValueError("saved out must be q's dtype and shape, "
+                             "contiguous on q's device")
+        if (stats.dtype != torch.float32 or stats.shape != (b, n, 2 * h)
+                or stats.device != q.device or not stats.is_contiguous()):
+            raise ValueError(f"saved stats must be contiguous float32 "
+                             f"{(b, n, 2 * h)} on q's device")
     meta, batched = _meta_args(meta, ncc)
     params = _small_params(q, h, pe_kernel, pe_bias, blank_k, blank_v)
     nt = -(-n // TILE)
@@ -383,21 +573,29 @@ def cluster_attention_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
     dkv = torch.empty_like(kv)
     part = torch.empty(b * nt * ucap * 2 * c, **f32)
     rows = torch.empty((b * nt, 6 * h + 2 * c), **f32)
-    fn = _build.library("cluster_attention_bwd").cluster_attention_bwd
+    name = ("cluster_attention_bwd" if saved is None
+            else "cluster_attention_bwd_saved")
+    fn = getattr(_build.library(name), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
-                   + [ctypes.c_longlong] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch(fn, "cluster_attention_bwd", q.data_ptr(), kv.data_ptr(),
                 pos.data_ptr(), *(t.data_ptr() for t in meta),
                 *(t.data_ptr() for t in params), g_out.data_ptr(),
+                *((None, None) if saved is None
+                  else (t.data_ptr() for t in saved)),
                 dq.data_ptr(), dkv.data_ptr(), part.data_ptr(),
                 rows.data_ptr(), b, n, h, c_, ncc.shape[2], cs,
                 int(rel_width), int(clamp_width), pos.stride(0), batched,
-                ucap, _DTYPE_CODE[q.dtype], stream)
+                ucap, _DTYPE_CODE[q.dtype],
+                *_drop_args(drop, c_, q, kv, g_out, *(saved or ())),
+                stream)
     cluster_attention_backward.launches += 1
+    cluster_attention_backward.saved_launches += saved is not None
+    cluster_attention_backward.drop_launches += drop is not None
     d_pe_kernel, d_pe_bias, d_blank_k, d_blank_v = torch.split(
         rows.sum(0), [5 * h, h, c_ * h, h * c_])
     return (dq, dkv,
@@ -408,25 +606,34 @@ def cluster_attention_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
 
 
 cluster_attention_backward.launches = 0
+cluster_attention_backward.saved_launches = 0
+cluster_attention_backward.drop_launches = 0
 
 
 class _FusedClusterAttention(torch.autograd.Function):
     """Forward and backward through the kernels (CUDA) or the plain
-    versions (CPU); the backward recomputes the softmax. On the card the
-    forward and the backward share one :class:`TileMeta`."""
+    versions (CPU). With ``stats`` (autograd needs the backward and the
+    saved-stats mode is on) the forward also writes the softmax statistics
+    and saves them with its output, the very tensor it returns, and the
+    backward takes them; else the backward recomputes the softmax. On the
+    card the forward and the backward share one :class:`TileMeta`."""
 
     @staticmethod
     def forward(ctx, q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v,
-                num_heads, cs, rel_width, clamp_width, meta):
+                num_heads, cs, rel_width, clamp_width, meta, drop, stats):
         if q.device.type == "cuda":
             meta = _meta_args(meta, ncc)[0]
         ctx.args = (num_heads, cs, rel_width, clamp_width)
         ctx.tiles = meta
+        ctx.drop = drop
+        ctx.saved_mode = stats
+        res = cluster_attention_forward(
+            q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, num_heads,
+            cs, rel_width, clamp_width, meta, drop, want_stats=stats)
+        out = res[0] if stats else res
         ctx.save_for_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
-                              blank_v)
-        return _attention_forward(q, kv, ncc, pos, pe_kernel, pe_bias,
-                                  blank_k, blank_v, num_heads, cs, rel_width,
-                                  clamp_width, meta)
+                              blank_v, *(res if stats else ()))
+        return out
 
     @staticmethod
     def backward(ctx, g_out):
@@ -434,14 +641,16 @@ class _FusedClusterAttention(torch.autograd.Function):
         q = saved[0]
         g_out = g_out.to(q.dtype).contiguous()
         dq, dkv, dpk, dpb, dbk, dbv = cluster_attention_backward(
-            *saved, g_out, *ctx.args, meta=ctx.tiles)
+            *saved[:8], g_out, *ctx.args, meta=ctx.tiles,
+            saved=tuple(saved[8:]) if ctx.saved_mode else None,
+            drop=ctx.drop)
         return (dq, dkv, None, None, dpk, dpb, dbk, dbv,
-                None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def fused_cluster_attention(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
                             blank_v, num_heads, cs, rel_width, clamp_width=0,
-                            drop_rate=0.0, meta=None):
+                            drop_rate=0.0, drop_seed=None, meta=None):
     """Fused local cluster attention, differentiable in ``q, kv, pe_kernel,
     pe_bias, blank_k, blank_v``.
 
@@ -456,7 +665,12 @@ def fused_cluster_attention(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
         blank_k: (c_, h) blank-key slices; blank_v: (h, c_) blank values.
         num_heads: h. cs: cluster size. rel_width: R.
         clamp_width: table width for the MixRes clamp (0 = no clamp).
-        drop_rate: post-softmax attention dropout; only 0 is ported.
+        drop_rate / drop_seed: post-softmax attention dropout of the slots
+            and the blank (JAX ``_fca_drop``); a rate above 0 needs the
+            seed, a host integer (:func:`draw_drop_seed`), whose masks
+            (:func:`drop_keep`) are the same on every device and are
+            replayed by the backward, and heads of c_ % 8 == 0 channels,
+            as JAX's fused dropout does.
         meta: :func:`tile_metadata` of this same ``ncc``, which the CUDA
             kernels read instead of ``ncc``; computed here when None. Only
             its shapes are checked: metadata of another ``ncc`` gives
@@ -465,18 +679,26 @@ def fused_cluster_attention(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
 
     Returns:
         out (b, n, c) in q's dtype, the blank-token contribution included.
+        When autograd records the call, the backward takes the forward's
+        softmax statistics unless ``MLAFF_BWD_SAVED=0`` (:func:`saved_mode`).
     """
+    drop = None
     if drop_rate > 0.0:
-        raise NotImplementedError(
-            "attention-prob dropout inside the fused kernels is not ported "
-            "(ROADMAP.md queue B item 7); every AFF preset has attn_drop 0")
+        if drop_seed is None:
+            raise ValueError("drop_rate > 0 requires drop_seed")
+        _check_drop(q.shape[-1] // num_heads)
+        drop = (float(drop_rate), int(drop_seed))
     # the small parameters go to the accumulation type outside the Function,
     # with differentiable casts, so their gradients reach the f32 params
     acc = torch.promote_types(q.dtype, torch.float32)
+    small = [t.to(acc) for t in (pe_kernel, pe_bias, blank_k, blank_v)]
+    stats = (torch.is_grad_enabled() and saved_mode()
+             and any(t.requires_grad for t in (q, kv, *small)))
     return _FusedClusterAttention.apply(
-        q, kv, ncc, pos, pe_kernel.to(acc), pe_bias.to(acc),
-        blank_k.to(acc), blank_v.to(acc), num_heads, cs, rel_width,
-        clamp_width, meta)
+        q, kv, ncc, pos, *small, num_heads, cs, rel_width, clamp_width, meta,
+        drop, stats)
 
 
 fused_cluster_attention.launches = 0
+fused_cluster_attention.stats_launches = 0
+fused_cluster_attention.drop_launches = 0

@@ -23,6 +23,14 @@ card one after another. Prints one JSON line: per shape and direction
 (:func:`device_ms`, calls queued back to back), for the merges also the
 inverse index alone (where the checkout has one), and the card's
 ``nvidia-smi`` name and power limit.
+
+The attention is timed in each mode the checkout has
+(:func:`attention_calls`): ``fwd`` (inference), ``fwd_stats`` (training:
+the saved statistics too), ``fwd_drop`` (training with attention
+dropout, ``DROP_RATE``), ``bwd`` (the backward as training calls it: from
+the saved statistics, or recomputing them with ``MLAFF_BWD_SAVED=0``),
+``bwd_recompute`` and ``bwd_saved`` (both modes, in one run) and
+``bwd_drop``; a checkout without the modes has ``fwd`` and ``bwd`` only.
 """
 
 import argparse
@@ -39,6 +47,7 @@ ATTN_STAGES = [("stage1", 3136, 2, 32, 2), ("stage2", 784, 4, 128, 2),
 MERGES = [("merge1", 3136, 784, 32), ("merge2", 784, 196, 128),
           ("merge3", 196, 49, 256)]
 CS, NNC, IC, R, B = 8, 6, 4, 55, 128
+DROP_RATE, DROP_SEED = 0.1, 1234567  # BERT's attention_probs_dropout_prob
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -245,10 +254,45 @@ def captured_attention(preset, b, dtype_name, dev, seed=0, train=False,
     return list(seen.values())
 
 
-def time_maskfiner(out, preset, dev, dtype, train=False):
-    from ml_autofocusformermod_torch.ops.cluster_attention import (
-        cluster_attention_backward, fused_cluster_attention)
+def attention_calls(args, geo, meta, g=None):
+    """Calls of the attention kernels on ``args`` (the eight inputs), as
+    the model makes them, by mode name (see the module docstring); with
+    ``g`` (the output gradient) the training modes and the backwards too.
+    The saved statistics the backwards take are made here once."""
+    from ml_autofocusformermod_torch.ops import cluster_attention as ca
 
+    calls = {"fwd": lambda: ca.fused_cluster_attention(*args, *geo,
+                                                       meta=meta)}
+    if g is None:
+        return calls
+    if not hasattr(ca, "cluster_attention_forward"):  # before the modes
+        calls["bwd"] = lambda: ca.cluster_attention_backward(
+            *args, g, *geo, meta=meta)
+        return calls
+    fwd, bwd = ca.cluster_attention_forward, ca.cluster_attention_backward
+    drop = (DROP_RATE, DROP_SEED)
+    saved = fwd(*args, *geo, meta=meta, want_stats=True)
+    dsaved = fwd(*args, *geo, meta=meta, drop=drop, want_stats=True)
+    calls.update(
+        fwd_stats=lambda: fwd(*args, *geo, meta=meta, want_stats=True),
+        fwd_drop=lambda: fwd(*args, *geo, meta=meta, drop=drop,
+                             want_stats=True),
+        bwd_saved=lambda: bwd(*args, g, *geo, meta=meta, saved=saved),
+        bwd_recompute=lambda: bwd(*args, g, *geo, meta=meta),
+        bwd_drop=lambda: bwd(*args, g, *geo, meta=meta, saved=dsaved,
+                             drop=drop))
+    calls["bwd"] = (calls["bwd_saved"] if ca.saved_mode()
+                    else calls["bwd_recompute"])
+    return calls
+
+
+def time_calls(out, label, calls):
+    for d, fn in calls.items():
+        out[f"{label}_{d}_ms"] = time_ms(fn)
+        out[f"{label}_{d}_device_ms"] = device_ms(fn)
+
+
+def time_maskfiner(out, preset, dev, dtype, train=False):
     dtype_name = str(dtype).split(".")[1]
     # a training step's inputs at the curriculum's first ratios and at the
     # final ones, or an eval forward's
@@ -258,35 +302,22 @@ def time_maskfiner(out, preset, dev, dtype, train=False):
                                       train=train, ratios=ratios):
             args = [row["args"][k] for k in ATTN_ARGS]
             geo = (row["heads"], row["cs"], row["rel_width"], row["clamp"])
-            meta = row["meta"]
-            fns = {"fwd": lambda: fused_cluster_attention(*args, *geo,
-                                                          meta=meta)}
-            if train:
-                fns["bwd"] = lambda: cluster_attention_backward(
-                    *args, row["g"], *geo, meta=meta)
-            for d, fn in fns.items():
-                out[f"{row['label']}_{d}_ms"] = time_ms(fn)
-                out[f"{row['label']}_{d}_device_ms"] = device_ms(fn)
+            time_calls(out, row["label"], attention_calls(
+                args, geo, row["meta"], row["g"] if train else None))
 
 
 def time_attention(out, gen, dev, dtype):
     import torch
 
     from ml_autofocusformermod_torch.ops.cluster_attention import (
-        cluster_attention_backward, fused_cluster_attention, tile_metadata)
+        tile_metadata)
 
     for label, n, h, c, _ in ATTN_STAGES:
         a = attention_inputs(gen, B, n, h, c, dev, dtype)
         args = [a[k] for k in ATTN_ARGS]
         g = torch.randn(B, n, c, generator=gen).to(dev, dtype)
-        meta = tile_metadata(a["ncc"])
-        fns = {"fwd": lambda: fused_cluster_attention(*args, h, CS, R,
-                                                      meta=meta),
-               "bwd": lambda: cluster_attention_backward(*args, g, h, CS, R,
-                                                         meta=meta)}
-        for d, fn in fns.items():
-            out[f"{label}_{d}_ms"] = time_ms(fn)
-            out[f"{label}_{d}_device_ms"] = device_ms(fn)
+        time_calls(out, label, attention_calls(
+            args, (h, CS, R, 0), tile_metadata(a["ncc"]), g))
 
 
 def time_merge(out, gen, dev, dtype):

@@ -21,7 +21,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models.layers import Dropout, DropPath
+from ..models.layers import ClusterAttention, Dropout, DropPath
 from .losses import mixup_cutmix, smooth_one_hot, soft_target_cross_entropy
 from .optim import Optimizer, build_optimizer, global_norm
 from .schedulers import build_scheduler
@@ -45,13 +45,15 @@ class TrainState:
     """What a train step reads and updates. ``drop_generator`` (on the
     model's device) drives Dropout and DropPath; ``mix_generator`` (CPU)
     drives mixup; ``upsample_generator`` (CPU) draws a MaskFiner model's
-    upsampling masks in training."""
+    upsampling masks in training; ``attn_drop_generator`` (CPU) draws the
+    seeds of the attention kernels' dropout."""
 
     model: torch.nn.Module
     optimizer: Optimizer
     drop_generator: torch.Generator
     mix_generator: torch.Generator
     upsample_generator: torch.Generator
+    attn_drop_generator: torch.Generator
     step: int = 0
     ema: Optional[Dict[str, torch.Tensor]] = field(default=None)
 
@@ -62,7 +64,8 @@ def create_train_state(config, model, n_steps_per_epoch: int = 1000,
     """``(state, schedule)`` for ``model``: the optimizer of
     ``config.TRAIN``, the EMA copy when ``TRAIN.USE_EMA``, and generators
     seeded from ``seed`` (default ``config.SEED``), handed to every
-    Dropout and DropPath and to a MaskFiner model's upsampling masks."""
+    Dropout and DropPath, to a MaskFiner model's upsampling masks and to
+    every ClusterAttention's dropout seeds."""
     seed = config.SEED if seed is None else seed
     schedule = build_scheduler(config, n_steps_per_epoch)
     optimizer = build_optimizer(config, schedule, model)
@@ -74,11 +77,16 @@ def create_train_state(config, model, n_steps_per_epoch: int = 1000,
     up_gen = torch.Generator().manual_seed(seed + 1)
     if hasattr(model, "upsample_generator"):
         model.upsample_generator = up_gen
+    attn_gen = torch.Generator().manual_seed(seed + 2)
+    for mod in model.modules():
+        if isinstance(mod, ClusterAttention):
+            mod.attn_drop_generator = attn_gen
     ema = None
     if config.TRAIN.USE_EMA:
         ema = {k: t.detach().clone() for k, t in ema_tensors(model).items()}
     state = TrainState(model, optimizer, drop_gen,
-                       torch.Generator().manual_seed(seed), up_gen, ema=ema)
+                       torch.Generator().manual_seed(seed), up_gen, attn_gen,
+                       ema=ema)
     return state, schedule
 
 

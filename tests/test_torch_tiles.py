@@ -189,7 +189,7 @@ def _owner_order_dkv(a, rel_width):
     t = {k: torch.from_numpy(v) for k, v in a.items()}
     b, n, c = t["q"].shape
     c_ = c // H
-    qh, _, vg, _, p, pb = _softmax_parts(
+    qh, _, vg, _, p, pb, _, _ = _softmax_parts(
         t["q"], t["kv"], t["ncc"], t["pos"], t["pe_kernel"], t["pe_bias"],
         t["blank_k"], H, CS, rel_width, 0)
     goh = t["g"].reshape(b, n, H, c_).permute(0, 2, 1, 3)

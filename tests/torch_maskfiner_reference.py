@@ -8,11 +8,12 @@ level (a name of ``LEVELS``), a tiny Oracle-Teacher or Up-Down model of
 ``tests/test_maskfiner.py::tiny_mr`` (a name of ``MODELS``), or one
 training-mode loss and gradient of such a model (a name of ``TRAIN``:
 ``jax.value_and_grad`` with the "upsample" and "dropout" rng streams and
-mutable batch statistics, as the JAX ``train/trainer.py`` takes it), and
-writes the weights, inputs, upsampling masks and outputs to one ``.npz``
-(keys ``case/params/...``, ``case/batch_stats/...``, ``case/in/...``,
-``case/mask/j``, ``case/out/...``, ``case/grad/...``,
-``case/new_stats/...``).
+mutable batch statistics, as the JAX ``train/trainer.py`` takes it; a
+name of ``TRAIN_DROP`` the same with attention dropout inside the fused
+kernels), and writes the weights, inputs, upsampling masks and outputs to
+one ``.npz`` (keys ``case/params/...``, ``case/batch_stats/...``,
+``case/in/...``, ``case/mask/j``, ``case/out/...``, ``case/grad/...``,
+``case/new_stats/...``, and for ``TRAIN_DROP`` ``case/seeds``).
 
 It runs as a process of its own because of the flag: XLA's CPU backend
 otherwise contracts ``a * b + c`` into one fused multiply-add, and the
@@ -47,6 +48,7 @@ from ml_autofocusformermod_tpu.models.build import build_model  # noqa: E402
 from ml_autofocusformermod_tpu.models.mixres_neighbour import (  # noqa: E402
     MixResNeighbour,
 )
+from ml_autofocusformermod_tpu.ops import clusten_pallas  # noqa: E402
 
 B = 2
 IMG = 64
@@ -68,6 +70,18 @@ TRAIN = {
                      {"MODEL.MR.AUX_LOSS": True}, None),
     "ud_train_r1": ("maskfiner_up_down_mini.yaml", {},
                     [0.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0]),
+}
+# training cases with attention dropout on the local levels (2-4 of the
+# tiny Up-Down; its global levels would drop with flax's Dropout, whose
+# stream the port does not reproduce), c_ = 8 at every one of them (JAX's
+# fused dropout needs c_ % 8 == 0). Their JAX levels take the Pallas route
+# (built as on a TPU, run in interpret mode here), whose kernels drop with
+# the coordinate hash; the seed of each call is recorded in call order.
+TRAIN_DROP = {
+    "ud_train_attn_drop": ("maskfiner_up_down_mini.yaml", {
+        "MODEL.MR.EMBED_DIM": [32, 24, 16, 16, 16, 24, 32],
+        "MODEL.MR.ATTN_DROP_RATE": [0.0, 0.0, 0.25, 0.25, 0.25, 0.0, 0.0],
+    }, None),
 }
 LABELS = np.array([3, 7])
 # a first-layer level in training mode: its patch embedding's BatchNorm
@@ -98,6 +112,28 @@ _orig_rng, _orig_normal = maskfiner_ot._upsample_rng, jax.random.normal
 def _recording_rng(module, tag):
     _captured.append([tag, None])
     return _orig_rng(module, tag)
+
+
+# the dropout seeds of the fused attention calls of one traced forward
+_seeds = []
+_orig_fca = clusten_pallas.fused_cluster_attention
+
+
+def _recording_fca(*args, drop_seed=None, **kw):
+    if drop_seed is not None:
+        _seeds.append(drop_seed)
+    return _orig_fca(*args, drop_seed=drop_seed, **kw)
+
+
+def _build_pallas_route(cfg, ratios):
+    """``build_model`` as on a TPU: the MixRes levels take the fused
+    Pallas route (``maskfiner_{ot,ud}.py`` pick it by the backend)."""
+    real = jax.default_backend
+    jax.default_backend = lambda: "tpu"
+    try:
+        return build_model(cfg, upscale_ratios=ratios)
+    finally:
+        jax.default_backend = real
 
 
 def _recording_normal(key, shape=(), dtype=jnp.float32):
@@ -207,9 +243,13 @@ def run_train(out, name):
         smooth_one_hot, soft_target_cross_entropy,
     )
 
-    preset, opts, ratios = TRAIN[name]
+    drop = name in TRAIN_DROP
+    preset, opts, ratios = (TRAIN_DROP if drop else TRAIN)[name]
     rng = np.random.default_rng(6)
-    model = build_model(tiny_mr(preset, **opts), upscale_ratios=ratios)
+    if drop:
+        model = _build_pallas_route(tiny_mr(preset, **opts), ratios)
+    else:
+        model = build_model(tiny_mr(preset, **opts), upscale_ratios=ratios)
     x = rng.standard_normal((B, IMG, IMG, 3)).astype(np.float32)
     shapes = jax.eval_shape(lambda: model.init(
         {"params": jax.random.PRNGKey(0)}, jnp.asarray(x), training=False))
@@ -219,6 +259,7 @@ def run_train(out, name):
 
     def loss_fn(params, x):
         del _captured[:]
+        del _seeds[:]
         outputs, upd = model.apply(
             {"params": params, "batch_stats": stats0}, x,
             training=True, mutable=["batch_stats"],
@@ -230,12 +271,13 @@ def run_train(out, name):
         else:
             loss = soft_target_cross_entropy(outputs, target)
         masks = {int(t): m for t, m in _captured}
-        return loss, (upd.get("batch_stats", {}), masks)
+        seeds = jnp.concatenate(_seeds) if _seeds else jnp.zeros(0, jnp.int32)
+        return loss, (upd.get("batch_stats", {}), masks, seeds)
 
     step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
     with jax.default_matmul_precision("highest"):
-        (loss, (stats, masks)), grads = step(variables["params"],
-                                             jnp.asarray(x))
+        (loss, (stats, masks, seeds)), grads = step(variables["params"],
+                                                    jnp.asarray(x))
     flat(f"{name}/params", variables["params"], out)
     flat(f"{name}/batch_stats", stats0, out)
     flat(f"{name}/grad", grads, out)
@@ -245,6 +287,8 @@ def run_train(out, name):
     out[f"{name}/out/loss"] = np.asarray(loss)
     for j, m in masks.items():
         out[f"{name}/mask/{j}"] = np.asarray(m)
+    if drop:
+        out[f"{name}/seeds"] = np.asarray(seeds)
 
 
 def run_first_level_train(out, name):
@@ -283,11 +327,12 @@ def main():
     maskfiner_ot._upsample_rng = _recording_rng
     maskfiner_ud._upsample_rng = _recording_rng
     jax.random.normal = _recording_normal
+    clusten_pallas.fused_cluster_attention = _recording_fca
     path, cases = sys.argv[1], sys.argv[2:]
     out = {}
     for case in cases:
         run = (run_model if case in MODELS else
-               run_train if case in TRAIN else
+               run_train if case in TRAIN or case in TRAIN_DROP else
                run_first_level_train if case == FIRST_TRAIN else run_level)
         run(out, case)
     np.savez(path, **out)
