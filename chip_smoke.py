@@ -5,7 +5,9 @@
 Phases, one JSON line each:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch, CUDA and
-   nvcc versions;
+   nvcc versions; data_env: what the host offers the data feed (Pillow's
+   version, ``g++ --version``, whether ``jpeglib.h`` is found, the native
+   decoder's build outcome with the compiler's stderr, ``os.cpu_count()``);
 2. build: every CUDA kernel of ``ml_autofocusformermod_torch/csrc``, built
    from source with nvcc (one process per source, all at once);
 3. kernel_check: the attention forward kernel against its plain PyTorch
@@ -130,6 +132,28 @@ Phases, one JSON line each:
    Before the entry-point phases, dropout_check: the port's Dropout on
    the card (keep share, exact 1 / (1 - p) scale, the same mask from a
    reseeded generator).
+11. the real-data path, in a temporary directory: imagefolder_fabricate
+   writes a JPEG ImageFolder with Pillow (10 classes, 520 train and 130
+   validation images at ImageNet-like sizes, a grayscale JPEG and a PNG
+   per class and split); data_check holds the native decoder against
+   Pillow where the library builds, a ``Loader`` with the host's worker
+   count against none (equal bytes), ``prefetch_to_device`` to the card
+   against the loader's batches (equal bytes), and gives decode images/s
+   per worker and the items per decoder; pth_check loads a
+   reference-format ``.pth`` (a key dropped, a foreign key added) through
+   ``MODEL.PRETRAINED`` on the card and on the CPU (fp32 b = 2 logits
+   within 1e-3, the same argmax, 1 missing and 1 unexpected key) and a
+   1000-class head raises; imagefolder_train runs ``main`` on the folder
+   for AFF-Mini and UD-Mini (bf16, b = 128, one epoch of 4 steps from the
+   ``.pth``, validation over 128 + 2 images), then ``--eval --resume`` of
+   the epoch's checkpoint, which must give the same val loss (1e-5
+   relative), with img/s beside the synthetic runs', the items per
+   decoder, peak memory and launches. Without Pillow the script prints
+   ``{"phase": "imagefolder_train", "ran": false, "missing": [...]}``
+   and runs none of this.
+12. stop_processes, also when a phase fails: the loaders' worker server
+   and its resource tracker are stopped and waited for, and the script
+   fails if a child process of its own is still running.
 
 The launch counters are zeroed just before each run of the entry point
 and read just after; each mode of the attention kernels has a counter of
@@ -138,7 +162,8 @@ AFF-Mini training run (the dropout modes': the UD-Mini training run
 with attention dropout) and, under ``launches_by_path``, in the UD-Mini
 throughput run and in each MaskFiner training run too (``..._train``: as
 the preset configures it; ``..._train_attn_drop``: with attention
-dropout), and for the attention kernels their
+dropout) and in the two runs on the folder
+(``..._imagefolder_train``), and for the attention kernels their
 times at the UD-Mini shapes (``maskfiner_ud_mini``: the forward at eval;
 ``maskfiner_ud_mini_train_r1`` / ``_final``: forward and backward per
 training step).
@@ -1521,6 +1546,10 @@ def expect(fwd_passes, train_steps=0):
             "merge_inverse_index": 3 * train_steps}
 
 
+# the numbers of a ``main --eval`` result
+EVAL_KEYS = ("throughput_img_s", "acc1", "acc5", "loss")
+
+
 def phase_entry(torch, smi):
     import os
 
@@ -1532,7 +1561,7 @@ def phase_entry(torch, smi):
         torch, common + ["--eval", "--batch-size", "32"])
     forwards = 50 + 30 + 4  # throughput protocol + 128 synthetic images / 32
     ok = (launches == expect(forwards)
-          and all(math.isfinite(v) for v in result.values()))
+          and all(math.isfinite(result[k]) for k in EVAL_KEYS))
     emit({"phase": "eval", "batch": 32, "dtype": "bfloat16", **result,
           "seconds": secs, "launches": launches, "ok": ok})
     if not ok:
@@ -1566,7 +1595,7 @@ def phase_maskfiner_entry(torch, smi):
         torch, ["--cfg", preset_path(ud), "--eval", "--batch-size", "32"]
         + common)
     ok = (launches == expect_mf(ud_attn, 50 + 30 + 4)
-          and all(math.isfinite(v) for v in result.values()))
+          and all(math.isfinite(result[k]) for k in EVAL_KEYS))
     emit({"phase": "eval", "model": "maskfiner_ud_mini", "batch": 32,
           "dtype": "bfloat16", **result, "seconds": secs,
           "launches": launches, "ok": ok})
@@ -1626,7 +1655,7 @@ def phase_train(torch, smi):
           "card": smi, "seconds": secs, "launches": launches, "ok": ok})
     if not ok:
         raise AssertionError(f"training run: launches {launches}, {train}")
-    return launches
+    return launches, train["train_img_s_after_first"]
 
 
 def phase_dropout(torch):
@@ -1673,7 +1702,7 @@ def phase_maskfiner_train(torch, smi):
 
     from ml_autofocusformermod_torch.train import curriculum
 
-    by_run = {}
+    by_run, img_s = {}, {}
     for (name, (preset, attn, _)), dropping in itertools.product(
             MASKFINER.items(), (False, True)):
         mr = port_config(preset, []).MODEL.MR
@@ -1729,7 +1758,419 @@ def phase_maskfiner_train(torch, smi):
                                  f"{launches}, ratios {ratios}")
         by_run[name + "_train" + ("_attn_drop" if dropping else "")] = (
             launches)
+        if not dropping:
+            img_s[name] = epochs[0]["img_s_after_first"]
+    return by_run, img_s
+
+
+# ------------------------------------------------- the real-data path ----
+
+def phase_data_env():
+    """What the card's host offers the data feed: Pillow, g++, libjpeg's
+    header, the native library's build outcome, the CPU count."""
+    import os
+
+    from ml_autofocusformermod_torch.data import native_jpeg
+
+    try:
+        import PIL
+
+        pillow = PIL.__version__
+    except ImportError:
+        pillow = None
+    try:
+        gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()[0]
+    except (OSError, IndexError, subprocess.TimeoutExpired):
+        gxx = None
+    # the compiler's own search for the header (the build below needs it)
+    jpeglib = gxx is not None and subprocess.run(
+        ["g++", "-E", "-x", "c++", "-"], input="#include <jpeglib.h>\n",
+        capture_output=True, text=True, timeout=60).returncode == 0
+    env = {"phase": "data_env", "pillow": pillow, "gxx": gxx,
+           "jpeglib_h": jpeglib, "native_build": native_jpeg.build_info(),
+           "cpu_count": os.cpu_count()}
+    emit(env)
+    return env
+
+
+def phase_imagefolder_fabricate(root):
+    """A JPEG ImageFolder of 10 classes: ``train`` 52 and ``val`` 13
+    images per class at ImageNet-like sizes (500x375, 375x500, 500x333,
+    320x240, and one 1024x768 per class and split), quality 90, with one
+    grayscale JPEG and one PNG per class and split. Each image is its
+    class's smooth colour field at its size plus sensor noise cut from one
+    shared block at a random offset, with a random brightness shift."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    sizes = [(500, 375), (375, 500), (500, 333), (320, 240)]
+    rng = np.random.default_rng(0)
+    noise = rng.normal(0, 12, (768 + 64, 1024 + 64, 3)).astype(np.int16)
+    fields = {}
+
+    def photo(w, h, cls):
+        if (w, h, cls) not in fields:
+            y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+            f = 1.0 + 0.37 * cls
+            fields[w, h, cls] = (np.stack(
+                [np.sin(x / w * 6.3 * f + c) * np.cos(y / h * 4.1 * f - c)
+                 for c in (0.0, 1.3, 2.6)], -1) * 90 + 128).astype(np.int16)
+        oy, ox = rng.integers(0, 64, 2)
+        img = (fields[w, h, cls] + noise[oy:oy + h, ox:ox + w]
+               + int(rng.integers(-30, 30)))
+        return np.clip(img, 0, 255).astype(np.uint8)
+
+    t0 = time.perf_counter()
+    total, files = 0, 0
+    for split, per_class in (("train", 52), ("val", 13)):
+        for cls in range(10):
+            d = os.path.join(root, split, f"n{cls:08d}")
+            os.makedirs(d)
+            for i in range(per_class):
+                w, h = (1024, 768) if i == 0 else sizes[i % len(sizes)]
+                img = Image.fromarray(photo(w, h, cls))
+                if i == 1:
+                    img = img.convert("L")
+                path = os.path.join(d, f"{split}_{cls}_{i:03d}."
+                                    + ("png" if i == 2 else "JPEG"))
+                if i == 2:
+                    img.save(path)
+                else:
+                    img.save(path, quality=90)
+                total += os.path.getsize(path)
+                files += 1
+    emit({"phase": "imagefolder_fabricate", "files": files,
+          "classes": 10, "train": 520, "val": 130, "bytes": total,
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_data_check(torch, root):
+    """The data feed on the card's host, on the fabricated folder: the
+    native train and eval paths against the Pillow ones (JAX's tolerance,
+    ``tests/test_native_data.py:127-160``: within 0.2 in normalised units,
+    RandAugment and erasing off, full-resolution decode) where the native
+    library is there; a ``Loader`` with the card's worker count against
+    none, batch by batch (equal bytes); ``prefetch_to_device`` to the card
+    against the loader's batches (equal bytes); decode images/s per worker
+    on each path, train and eval transforms."""
+    import os
+    import random
+
+    from PIL import Image
+
+    from ml_autofocusformermod_torch.data import imagenet, native_jpeg
+    from ml_autofocusformermod_torch.data.prefetch import prefetch_to_device
+    from ml_autofocusformermod_torch.data.transforms import (
+        EvalTransform, TrainTransform,
+    )
+
+    cfg = port_config("aff_mini.yaml", ["DATA.DATA_PATH", root])
+    workers = min(cfg.DATA.NUM_WORKERS, os.cpu_count() or 1)
+    native = native_jpeg.available()
+    agree = {"ran": False, "missing": ["native library"]}
+    if native:
+        plain = port_config("aff_mini.yaml", [
+            "DATA.DATA_PATH", root, "AUG.AUTO_AUGMENT", "none",
+            "AUG.COLOR_JITTER", "0.0", "AUG.REPROB", "0.0"])
+        ds, _ = imagenet.build_dataset(plain, True)
+        jpegs = [p for p, _ in ds.samples if p.endswith(".JPEG")][:24]
+        worst = {"train": 0.0, "eval": 0.0}
+        for i, path in enumerate(jpegs):
+            with open(path, "rb") as f:
+                data = f.read()
+            w, h = native_jpeg.jpeg_dims(data)
+            for kind, t in (("train", TrainTransform(plain)),
+                            ("eval", EvalTransform(plain))):
+                with Image.open(path) as img:
+                    a = t(img, random.Random(i))
+                rng = random.Random(i)
+                box, interp, flip, _ = t.native_geometry(w, h, rng)
+                arr8 = native_jpeg.decode_crop_resize(
+                    data, box, (t.size, t.size), flip=flip,
+                    interpolation=interp, fast_scale=False)
+                b = t.finish_uint8(arr8, rng)
+                worst[kind] = max(worst[kind], float(abs(a - b).max()))
+        agree = {"ran": True, "files": len(jpegs), "max_abs_err": worst,
+                 "ok": max(worst.values()) < 0.2}
+    ds, _ = imagenet.build_dataset(cfg, True)
+    serial = imagenet.Loader(ds, 128, shuffle=True, seed=cfg.SEED)
+    par = imagenet.Loader(ds, 128, shuffle=True, seed=cfg.SEED,
+                          num_workers=workers, pin_memory=True)
+    t0 = time.perf_counter()
+    want = list(serial)
+    serial_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = list(par)
+    par_s = time.perf_counter() - t0
+    loader_equal = len(got) == len(want) == 4 and all(
+        torch.equal(g[k], w[k]) for g, w in zip(got, want) for k in w)
+    on_card = list(prefetch_to_device(iter(want), "cuda"))
+    prefetch_equal = len(on_card) == 4 and all(
+        c[k].device.type == "cuda" and torch.equal(c[k].cpu(), w[k])
+        for c, w in zip(on_card, want) for k in w)
+    val_ds, _ = imagenet.build_dataset(cfg, False)
+    val = imagenet.Loader(val_ds, 128, shuffle=False, drop_last=False,
+                          stride_shard=True)
+    t0 = time.perf_counter()
+    n_val = sum(len(b["label"]) for b in val)
+    val_s = time.perf_counter() - t0
+    rates = {f"train_{'native' if native else 'pil'}": 512 / serial_s,
+             f"eval_{'native' if native else 'pil'}": n_val / val_s}
+    if native:  # the Pillow path's rate beside the native one
+        ds.native = val_ds.native = False
+        t0 = time.perf_counter()
+        list(imagenet.Loader(ds, 128, shuffle=True, seed=cfg.SEED))
+        rates["train_pil"] = 512 / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        list(imagenet.Loader(val_ds, 128, shuffle=False, drop_last=False,
+                             stride_shard=True))
+        rates["eval_pil"] = n_val / (time.perf_counter() - t0)
+    counts = {"serial": dict(serial.decode_counts),
+              "workers": dict(par.decode_counts),
+              "val": dict(val.decode_counts)}
+    ok = (loader_equal and prefetch_equal and agree.get("ok", True)
+          and n_val == 130 and counts["serial"] == counts["workers"]
+          and sum(counts["serial"].values()) == 512)
+    emit({"phase": "data_check", "native": native,
+          "native_vs_pil": agree, "workers": workers,
+          "loader_workers_equal_serial": loader_equal,
+          "prefetch_cuda_equal": prefetch_equal,
+          "serial_seconds": serial_s, "workers_seconds": par_s,
+          "decode_img_per_s_per_worker": rates,
+          "decoded_by_path": counts, "ok": ok})
+    if not ok:
+        raise AssertionError("data feed: the loader's workers, the prefetch "
+                             "or the native path disagree")
+
+
+PTH_DROPPED = "layers.1.blocks.0.norm1.bias"
+
+
+def phase_pth_check(torch, tmp):
+    """Reference-format ``.pth`` files (``{'model': state_dict}`` of
+    seeded 10-class models, BatchNorm step counters included) for AFF-Mini
+    and UD-Mini; AFF-Mini's with one key dropped and one foreign key added,
+    loaded through ``MODEL.PRETRAINED`` (``main.load_reference``) into a
+    model on the card and one on the CPU: fp32 b2 logits within 1e-3 with
+    the same argmax, 1 missing and 1 unexpected key reported on both; a
+    file with a 1000-class head raises. Returns the clean files' paths."""
+    import os
+
+    import numpy as np
+
+    from ml_autofocusformermod_torch import main as port_main
+    from ml_autofocusformermod_torch.models.build import build_model
+
+    ten = ["MODEL.NUM_CLASSES", "10", "TPU.COMPUTE_DTYPE", "float32"]
+    paths = {}
+    for name, preset in (("aff_mini", "aff_mini.yaml"),
+                         ("maskfiner_ud_mini", MASKFINER[
+                             "maskfiner_ud_mini"][0])):
+        sd = build_model(port_config(preset, ten), "cpu", seed=3).state_dict()
+        paths[name] = os.path.join(tmp, f"{name}_10cls.pth")
+        torch.save({"model": sd, "epoch": 299}, paths[name])
+    sd = torch.load(paths["aff_mini"], weights_only=False)["model"]
+    counters_in = sum(k.endswith("num_batches_tracked") for k in sd)
+    del sd[PTH_DROPPED]
+    sd["extra_head.weight"] = torch.ones(4, 4)
+    edited = os.path.join(tmp, "aff_mini_edited.pth")
+    torch.save({"model": sd}, edited)
+    cfg = port_config("aff_mini.yaml", ten + ["MODEL.PRETRAINED", edited])
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 3, 224, 224)).astype(np.float32))
+    out, loaded = {}, {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cuda", "cpu"):
+            model = build_model(cfg, dev, seed=0)
+            loaded[dev] = port_main.load_reference(cfg, model, None,
+                                                   lambda msg: None)
+            with torch.no_grad():
+                out[dev] = model(x.to(dev)).float().cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    err = (out["cuda"] - out["cpu"]).abs().max().item()
+    same_argmax = bool((out["cuda"].argmax(-1) == out["cpu"].argmax(-1)).all())
+    reported = {dev: (len(v["pretrained"]["missing"]),
+                      len(v["pretrained"]["unexpected"]))
+                for dev, v in loaded.items()}
+    sd["head.weight"] = torch.zeros(1000, 384)
+    sd["head.bias"] = torch.zeros(1000)
+    wrong = os.path.join(tmp, "aff_mini_in1k_head.pth")
+    torch.save({"model": sd}, wrong)
+    try:
+        port_main.load_reference(
+            port_config("aff_mini.yaml", ten + ["MODEL.PRETRAINED", wrong]),
+            build_model(cfg, "cpu", seed=0), None, lambda msg: None)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    ok = (err <= 1e-3 and same_argmax and counters_in > 0
+          and reported == {"cuda": (1, 1), "cpu": (1, 1)}
+          and raised is not None and "head" in raised
+          and bool(out["cuda"].isfinite().all()))
+    emit({"phase": "pth_check", "model": "aff_mini_224", "dtype": "float32",
+          "b": 2, "num_batches_tracked_in_file": counters_in,
+          "dropped": PTH_DROPPED, "missing_unexpected": reported,
+          "max_abs_err_vs_cpu": err, "same_argmax": same_argmax,
+          "wrong_head_raises": raised, "ok": ok})
+    if not ok:
+        raise AssertionError("reference .pth import: the card disagrees "
+                             "with the CPU, or the key report is wrong")
+    return paths
+
+
+def phase_imagefolder_train(torch, smi, root, pths, synthetic):
+    """``main`` training AFF-Mini 224 and UD-Mini 224 (bf16, b = 128) for
+    one epoch on the fabricated folder from the ``.pth`` files of
+    :func:`phase_pth_check` (``MODEL.PRETRAINED``): 4 steps of the real
+    transforms (RRC, flip, RandAugment m9, random erasing) through the
+    decoder, the workers and the prefetch; a validation over its 130
+    images (128 + 2); then ``--eval --resume`` of the epoch's checkpoint
+    reproduces the val loss to 1e-5 relative (UD-Mini at the epoch's
+    ratios). Prints img/s after the first step (step time alone, and with
+    the waits for data) beside the same script's synthetic-data run, the
+    items per decoder, peak memory and launches. Returns the training
+    runs' launches by name."""
+    import os
+    import shutil
+    import tempfile
+
+    by_run = {}
+    for name, preset in (("aff_mini", "aff_mini.yaml"),
+                         ("maskfiner_ud_mini",
+                          MASKFINER["maskfiner_ud_mini"][0])):
+        out = tempfile.mkdtemp(prefix="chip_smoke_folder_")
+        try:
+            result, secs, launches = run_main(torch, [
+                "--cfg", preset_path(preset), "--device", "cuda",
+                "--data-path", root, "--batch-size", "128", "--epochs", "1",
+                "--output", out, "--opts", "MODEL.PRETRAINED", pths[name]])
+            train = result["train"]
+            epoch = train["epochs"][0]
+            opts = []
+            if epoch["ratios"] is not None:  # evaluate at the epoch's ratios
+                opts = ["--opts", "MODEL.MR.UPSCALE_RATIO",
+                        str(epoch["ratios"])]
+            again, eval_secs, eval_launches = run_main(torch, [
+                "--cfg", preset_path(preset), "--device", "cuda",
+                "--data-path", root, "--batch-size", "128", "--eval",
+                "--resume", train["checkpoint"], *opts])
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+        # the throughput protocol, 4 train steps, 2 validation batches
+        if name == "aff_mini":
+            want, want_eval = expect(80 + 2, 4), expect(80 + 2)
+        else:
+            attn = MASKFINER[name][1]
+            want = dict.fromkeys(counters(), 0)
+            want_eval = dict(want)
+            want.update(attention_launches(attn * 82, attn * 4))
+            want_eval.update(attention_launches(attn * 82, 0))
+        pre = result["weights"]["pretrained"]
+        reproduced = (abs(again["loss"] - train["val_loss"])
+                      <= 1e-5 * abs(train["val_loss"]))
+        decoded = result["decoded"]
+        ok = (launches == want and eval_launches == want_eval
+              and train["steps"] == 4 and train["skipped_steps"] == 0
+              and result["num_classes"] == 10
+              and pre["missing"] == [] and pre["unexpected"] == []
+              and train["val_count"] == 130 and again["val_count"] == 130
+              and reproduced
+              and sum(decoded["train"].values()) == 512
+              and sum(decoded["val"].values()) == 128 + 130
+              and all(math.isfinite(v) for v in (
+                  train["train_loss"], train["val_loss"], again["loss"])))
+        emit({"phase": "imagefolder_train", "ran": True, "model": name,
+              "batch": 128, "dtype": "bfloat16", "steps": train["steps"],
+              "ratios": epoch["ratios"],
+              "img_per_s_after_first": train["train_img_s_after_first"],
+              "wall_img_per_s_after_first":
+                  train["train_wall_img_s_after_first"],
+              "synthetic_img_per_s_after_first": synthetic[name],
+              "step_seconds": epoch["step_seconds"],
+              "data_wait_seconds": epoch["data_wait_seconds"],
+              "decoded_by_path": decoded,
+              "peak_memory_bytes": epoch["peak_memory_bytes"],
+              "val_images": train["val_count"], "val_acc1": train["acc1"],
+              "val_loss": train["val_loss"],
+              "eval_resume_val_loss": again["loss"],
+              "eval_resume_reproduces": reproduced,
+              "pretrained": {k: pre[k] for k in ("missing", "unexpected")},
+              # the run's launches less the evaluation's 82 forwards
+              "launches_per_step": {k: (launches[k] - eval_launches[k]) / 4
+                                    for k in launches},
+              "card": smi, "seconds": secs, "eval_seconds": eval_secs,
+              "launches": launches, "eval_launches": eval_launches,
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name} on the ImageFolder: launches "
+                                 f"{launches} / {eval_launches}, {train}")
+        by_run[f"{name}_imagefolder_train"] = launches
     return by_run
+
+
+def phase_real_data(torch, smi, env, synthetic):
+    """The real-data path: the folder, the data checks, the ``.pth``
+    import and the two training runs, in a temporary directory removed
+    after. Without Pillow (which writes the folder) it reports what is
+    missing and runs none of it. Returns the training runs' launches."""
+    import shutil
+    import tempfile
+
+    if env["pillow"] is None:
+        emit({"phase": "imagefolder_train", "ran": False,
+              "missing": ["Pillow"], "native_build": env["native_build"]})
+        return {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_imagefolder_")
+    try:
+        root = tmp + "/imagenet"
+        phase_imagefolder_fabricate(root)
+        phase_data_check(torch, root)
+        pths = phase_pth_check(torch, tmp)
+        return phase_imagefolder_train(torch, smi, root, pths, synthetic)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def child_processes() -> list:
+    """(pid, command line) of the processes whose parent is this one."""
+    import os
+
+    me, out = os.getpid(), []
+    for d in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                # the fields after the command name, which may hold spaces
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid == me:
+                with open(f"/proc/{d}/cmdline", "rb") as f:
+                    out.append((int(d), f.read().replace(b"\0", b" ")
+                                .decode(errors="replace").strip()))
+        except (OSError, ValueError, IndexError):
+            continue  # not a process, or it has just exited
+    return out
+
+
+def stop_processes() -> None:
+    """Stop every process the run started that would outlive it: the
+    loaders' worker server and its resource tracker (their worker processes
+    end with the loader passes, all closed by now). Fails if a child
+    process of this one is still there after."""
+    import gc
+
+    gc.collect()  # closes any loader pass whose iterator was dropped
+    imagenet = sys.modules.get("ml_autofocusformermod_torch.data.imagenet")
+    if imagenet is not None:
+        imagenet.stop_worker_server()
+    left = child_processes()
+    emit({"phase": "stop_processes", "left": left, "ok": not left})
+    if left:
+        raise AssertionError(f"processes still running: {left}")
 
 
 def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
@@ -1807,30 +2248,39 @@ def main() -> int:
     import torch
 
     smi = phase_device(torch)
-    phase_build()
-    fwd = phase_kernels(torch)
-    bwd = phase_kernels_bwd(torch)
-    rows = {"cluster_attention_fwd": fwd["attention"],
-            "cluster_attention_fwd_stats": fwd["stats"],
-            "cluster_attention_fwd_dropout": fwd["dropout"],
-            "cluster_attention_bwd": bwd["attention"],
-            "cluster_attention_bwd_dropout": bwd["dropout"],
-            **phase_merge(torch)}
-    mf_rows = phase_maskfiner_kernels(torch)
-    mft_rows, widest = phase_maskfiner_train_kernels(torch)
-    phase_attention_bwd_deterministic(torch, widest)
-    del widest
-    phase_model(torch)
-    phase_train_check(torch)
-    phase_maskfiner_model(torch)
-    phase_maskfiner_train_check(torch)
-    phase_dropout(torch)
-    phase_entry(torch, smi)
-    launches = phase_train(torch, smi)
-    mf_launches = phase_maskfiner_entry(torch, smi)
-    mft_launches = phase_maskfiner_train(torch, smi)
-    emit(kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
-                      mft_launches))
+    try:
+        env = phase_data_env()
+        phase_build()
+        fwd = phase_kernels(torch)
+        bwd = phase_kernels_bwd(torch)
+        rows = {"cluster_attention_fwd": fwd["attention"],
+                "cluster_attention_fwd_stats": fwd["stats"],
+                "cluster_attention_fwd_dropout": fwd["dropout"],
+                "cluster_attention_bwd": bwd["attention"],
+                "cluster_attention_bwd_dropout": bwd["dropout"],
+                **phase_merge(torch)}
+        mf_rows = phase_maskfiner_kernels(torch)
+        mft_rows, widest = phase_maskfiner_train_kernels(torch)
+        phase_attention_bwd_deterministic(torch, widest)
+        del widest
+        phase_model(torch)
+        phase_train_check(torch)
+        phase_maskfiner_model(torch)
+        phase_maskfiner_train_check(torch)
+        phase_dropout(torch)
+        phase_entry(torch, smi)
+        launches, aff_img_s = phase_train(torch, smi)
+        mf_launches = phase_maskfiner_entry(torch, smi)
+        mft_launches, mf_img_s = phase_maskfiner_train(torch, smi)
+        mft_launches.update(phase_real_data(
+            torch, smi, env,
+            {"aff_mini": aff_img_s,
+             "maskfiner_ud_mini": mf_img_s["maskfiner_ud_mini"]}))
+        line = kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
+                            mft_launches)
+    finally:
+        stop_processes()
+    emit(line)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

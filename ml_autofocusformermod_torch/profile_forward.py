@@ -31,7 +31,7 @@ from collections import defaultdict
 import torch
 
 from .config import load_config
-from .data.synthetic import build_val_dataset, iterate_batches
+from .data.imagenet import Loader, build_dataset
 from .models.build import build_model
 from .train.losses import smooth_one_hot
 from .train.trainer import (apply_gradients, create_train_state,
@@ -111,9 +111,10 @@ def main(argv=None) -> dict:
                                     "DATA.DATA_PATH", "no_dataset"]
     config = load_config(args.cfg, opts=opts)
     model = build_model(config, "cuda")
-    images, labels = next(iterate_batches(build_val_dataset(config),
-                                          args.batch_size))
-    images, labels = images.cuda(), labels.cuda()
+    val, _ = build_dataset(config, is_train=False)  # synthetic
+    batch = next(iter(Loader(val, args.batch_size, shuffle=False,
+                             drop_last=False, stride_shard=True)))
+    images, labels = batch["image"].cuda(), batch["label"].cuda()
     split = None
     if args.train:
         state, schedule = create_train_state(config, model, 1000)

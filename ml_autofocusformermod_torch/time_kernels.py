@@ -194,11 +194,10 @@ def captured_attention(preset, b, dtype_name, dev, seed=0, train=False,
     ``g``, the output gradient the first call at that n got in the
     backward. ``ratios`` overrides the configured upsampling ratios (e.g.
     ``RATIO_ONE[preset]``, the curriculum's first epoch)."""
+    import numpy as np
     import torch
 
     from ml_autofocusformermod_torch.config import load_config
-    from ml_autofocusformermod_torch.data.synthetic import (
-        build_val_dataset, iterate_batches)
     from ml_autofocusformermod_torch.models import layers
     from ml_autofocusformermod_torch.models.build import build_model
     from ml_autofocusformermod_torch.train.losses import (
@@ -209,7 +208,14 @@ def captured_attention(preset, b, dtype_name, dev, seed=0, train=False,
     cfg = load_config(os.path.join(here, "configs", preset), opts=[
         "TPU.COMPUTE_DTYPE", dtype_name, "DATA.DATA_PATH", "no_dataset"])
     model = build_model(cfg, dev, seed=seed, upscale_ratios=ratios)
-    images, labels = next(iterate_batches(build_val_dataset(cfg), b))
+    # the first b synthetic validation images (data/imagenet.py::
+    # SyntheticDataset), made here so that an older checkout's data
+    # module is not needed
+    size = cfg.DATA.IMG_SIZE
+    images = torch.from_numpy(np.stack([
+        np.random.default_rng(i).standard_normal((size, size, 3)).astype(
+            np.float32) for i in range(b)]).transpose(0, 3, 1, 2).copy())
+    labels = torch.arange(b) % cfg.MODEL.NUM_CLASSES
     seen = {}
     real = layers.fused_cluster_attention
 

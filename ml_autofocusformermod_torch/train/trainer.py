@@ -155,27 +155,31 @@ def make_train_step(config, state: TrainState, schedule: Callable) -> Callable:
 
 
 def make_eval_step(config, model) -> Callable:
-    """(images, labels) -> partial sums for the accuracy/loss
-    meters: ``loss_sum``, ``top1``, ``top5``, ``count`` (plain CE, as the
-    JAX package's ``make_eval_step``, ``trainer.py:191-220``). Puts the
-    model in eval mode."""
+    """(images, labels[, valid]) -> partial sums for the accuracy/loss
+    meters: ``loss_sum``, ``top1``, ``top5``, ``count`` over the rows where
+    ``valid`` (default: every row), plain CE, as the JAX package's
+    ``make_eval_step`` (``trainer.py:191-220``). Puts the model in eval
+    mode."""
 
     @torch.no_grad()
-    def eval_step(images: torch.Tensor,
-                  labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def eval_step(images: torch.Tensor, labels: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None
+                  ) -> Dict[str, torch.Tensor]:
         model.eval()
         logits = model(images)
         if isinstance(logits, (list, tuple)):
             logits = logits[-1]
         logits = logits.float()
-        loss_sum = F.cross_entropy(logits, labels, reduction="sum")
+        if valid is None:
+            valid = torch.ones_like(labels, dtype=torch.bool)
+        per_sample = F.cross_entropy(logits, labels, reduction="none")
         # lower class index first among equal logits, as jnp.argsort
         top = torch.sort(-logits, dim=-1, stable=True)[1][:, :5]
         return {
-            "loss_sum": loss_sum,
-            "top1": (top[:, 0] == labels).sum(),
-            "top5": (top == labels[:, None]).any(-1).sum(),
-            "count": torch.tensor(labels.numel()),
+            "loss_sum": (per_sample * valid).sum(),
+            "top1": ((top[:, 0] == labels) & valid).sum(),
+            "top5": ((top == labels[:, None]).any(-1) & valid).sum(),
+            "count": valid.sum(),
         }
 
     return eval_step

@@ -95,10 +95,14 @@ def test_import_hygiene():
         "new = {'ml_autofocusformermod_torch.models.' + m for m in\n"
         "       ('mixres_common', 'mixres_vit', 'mixres_neighbour',\n"
         "        'maskfiner_ot', 'maskfiner_ud')}\n"
+        "new |= {'ml_autofocusformermod_torch.' + m for m in\n"
+        "        ('data.imagenet', 'data.transforms', 'data.native_jpeg',\n"
+        "         'data.prefetch', 'ckpt.pth_import')}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'ml_autofocusformermod_tpu'))\n"
         "assert not bad, bad\n"
+        "assert 'PIL' not in sys.modules, 'Pillow is imported lazily'\n"
         "print('clean', len(sys.modules))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
