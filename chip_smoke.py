@@ -151,7 +151,30 @@ Phases, one JSON line each:
    decoder, peak memory and launches. Without Pillow the script prints
    ``{"phase": "imagefolder_train", "ran": false, "missing": [...]}``
    and runs none of this.
-12. stop_processes, also when a phase fails: the loaders' worker server
+12. the single-card switches: ops_check calls each op of the ``mlaff``
+   namespace as ``torch.ops.mlaff.*`` (not through the wrappers) at
+   AFF-Mini's stage 2 and second merge, b = 8 fp32, against its plain
+   version (1e-4 of max|ref|; the inverse index exactly) with one launch
+   per call; remat_check runs one fp32 b = 2 train step of AFF-Mini and
+   of UD-Mini (ratio 1.0) with Dropout, DropPath and attention dropout at
+   0.1, from equal states, with ``TPU.REMAT`` '' (twice), ``blocks`` and
+   ``dots``: the loss equal to the bit, each gradient equal to the bit
+   where the two '' runs are and else within twice their spread, the
+   generators' states equal, and per step 20 (AFF-Mini) or 32 (UD-Mini)
+   attention forwards against 10 / 16 backwards; remat_train runs
+   ``main`` at b = 128 bf16 with each mode for one synthetic epoch
+   (UD-Mini at ratio 1.0): img/s after the first step and peak memory
+   beside the same run without remat (phases 8 and 10); export exports
+   AFF-Mini and UD-Mini at b = 128 bf16 on the card, loads each program
+   in a fresh process that imports no model code and calls it with the
+   model's state dict: logits equal to the eager model's, launches an
+   eager forward's (10 + 3, 16), the export's seconds and the artifact's
+   bytes; flops runs ``main --throughput --opts PRINT_FLOPS True``
+   (GFLOPs per image, parameters; AFF-Mini beside its published 6.75 M
+   and 1.08 G ptflops MACs); profile runs ``main --profile`` on AFF-Mini
+   with a 2-step window: 2 step spans, and each fused kernel by its CUDA
+   name as often as its counter counts over 2 steps;
+13. stop_processes, also when a phase fails: the loaders' worker server
    and its resource tracker are stopped and waited for, and the script
    fails if a child process of its own is still running.
 
@@ -163,7 +186,9 @@ with attention dropout) and, under ``launches_by_path``, in the UD-Mini
 throughput run and in each MaskFiner training run too (``..._train``: as
 the preset configures it; ``..._train_attn_drop``: with attention
 dropout) and in the two runs on the folder
-(``..._imagefolder_train``), and for the attention kernels their
+(``..._imagefolder_train``), in the remat runs (``..._remat_blocks``,
+``_remat_dots``), the exported programs' calls (``..._export``) and the
+profiled run (``aff_mini_profile``), and for the attention kernels their
 times at the UD-Mini shapes (``maskfiner_ud_mini``: the forward at eval;
 ``maskfiner_ud_mini_train_r1`` / ``_final``: forward and backward per
 training step).
@@ -1403,31 +1428,42 @@ def phase_maskfiner_train_check(torch):
                                      "launched the wrong kernels")
 
 
+# the launch counters, by kernel (or mode) name: (module of
+# ml_autofocusformermod_torch.ops, wrapper, counter attribute); a mode's
+# launches are also counted in its kernel's
+COUNTERS = {
+    "cluster_attention_fwd": ("cluster_attention", "fused_cluster_attention",
+                              "launches"),
+    "cluster_attention_fwd_stats": ("cluster_attention",
+                                    "fused_cluster_attention",
+                                    "stats_launches"),
+    "cluster_attention_fwd_dropout": ("cluster_attention",
+                                      "fused_cluster_attention",
+                                      "drop_launches"),
+    "cluster_attention_bwd": ("cluster_attention",
+                              "cluster_attention_backward", "launches"),
+    "cluster_attention_bwd_saved": ("cluster_attention",
+                                    "cluster_attention_backward",
+                                    "saved_launches"),
+    "cluster_attention_bwd_dropout": ("cluster_attention",
+                                      "cluster_attention_backward",
+                                      "drop_launches"),
+    "cluster_merge_fwd": ("cluster_merge", "fused_cluster_merge", "launches"),
+    "cluster_merge_bwd": ("cluster_merge", "cluster_merge_backward",
+                          "launches"),
+    "merge_inverse_index": ("cluster_merge", "merge_inverse_index",
+                            "launches"),
+}
+
+
 def counters():
     """The launch counters of the kernel wrappers, by kernel (or mode)
-    name: (wrapper, counter attribute). A mode's launches are also counted
-    in its kernel's."""
-    from ml_autofocusformermod_torch.ops.cluster_attention import (
-        cluster_attention_backward, fused_cluster_attention,
-    )
-    from ml_autofocusformermod_torch.ops.cluster_merge import (
-        cluster_merge_backward, fused_cluster_merge, merge_inverse_index,
-    )
+    name: (wrapper, counter attribute), from :data:`COUNTERS`."""
+    import importlib
 
-    return {"cluster_attention_fwd": (fused_cluster_attention, "launches"),
-            "cluster_attention_fwd_stats": (fused_cluster_attention,
-                                            "stats_launches"),
-            "cluster_attention_fwd_dropout": (fused_cluster_attention,
-                                              "drop_launches"),
-            "cluster_attention_bwd": (cluster_attention_backward,
-                                      "launches"),
-            "cluster_attention_bwd_saved": (cluster_attention_backward,
-                                            "saved_launches"),
-            "cluster_attention_bwd_dropout": (cluster_attention_backward,
-                                              "drop_launches"),
-            "cluster_merge_fwd": (fused_cluster_merge, "launches"),
-            "cluster_merge_bwd": (cluster_merge_backward, "launches"),
-            "merge_inverse_index": (merge_inverse_index, "launches")}
+    return {k: (getattr(importlib.import_module(
+        "ml_autofocusformermod_torch.ops." + m), f), a)
+        for k, (m, f, a) in COUNTERS.items()}
 
 
 def zero_counters():
@@ -1540,10 +1576,7 @@ def run_main(torch, argv):
 def expect(fwd_passes, train_steps=0):
     """Launches of the kernels for ``fwd_passes`` forwards outside
     training and ``train_steps`` train steps of AFF-Mini."""
-    f = fwd_passes + train_steps
-    return {**attention_launches(10 * fwd_passes, 10 * train_steps),
-            "cluster_merge_fwd": 3 * f, "cluster_merge_bwd": 3 * train_steps,
-            "merge_inverse_index": 3 * train_steps}
+    return expect_path("aff_mini", fwd_passes, train_steps)
 
 
 # the numbers of a ``main --eval`` result
@@ -1655,7 +1688,8 @@ def phase_train(torch, smi):
           "card": smi, "seconds": secs, "launches": launches, "ok": ok})
     if not ok:
         raise AssertionError(f"training run: launches {launches}, {train}")
-    return launches, train["train_img_s_after_first"]
+    return (launches, train["train_img_s_after_first"],
+            train["epochs"][0]["peak_memory_bytes"])
 
 
 def phase_dropout(torch):
@@ -1695,14 +1729,15 @@ def phase_maskfiner_train(torch, smi):
     final ratios (UD-Mini 0.9; OT 0.9 / 0.8 / 0.8). Per epoch the ratios,
     images/s after the first step, step ms and peak memory. Returns the
     launches of each run by name (``<model>_train`` for the preset's,
-    ``<model>_train_attn_drop``)."""
+    ``<model>_train_attn_drop``), and per model the first epoch's
+    images/s after the first step and peak memory, of the preset's run."""
     import os
     import shutil
     import tempfile
 
     from ml_autofocusformermod_torch.train import curriculum
 
-    by_run, img_s = {}, {}
+    by_run, img_s, peak = {}, {}, {}
     for (name, (preset, attn, _)), dropping in itertools.product(
             MASKFINER.items(), (False, True)):
         mr = port_config(preset, []).MODEL.MR
@@ -1760,7 +1795,8 @@ def phase_maskfiner_train(torch, smi):
             launches)
         if not dropping:
             img_s[name] = epochs[0]["img_s_after_first"]
-    return by_run, img_s
+            peak[name] = epochs[0]["peak_memory_bytes"]
+    return by_run, img_s, peak
 
 
 # ------------------------------------------------- the real-data path ----
@@ -2173,6 +2209,491 @@ def stop_processes() -> None:
         raise AssertionError(f"processes still running: {left}")
 
 
+# ------------------------------ the single-card switches (TPU.REMAT, ...) --
+
+REMAT = ("blocks", "dots")
+# the train state's generators, compared across the remat modes
+GENERATORS = ("drop_generator", "attn_drop_generator", "upsample_generator",
+              "mix_generator")
+# the models of the remat, export, flops and profile phases: name ->
+# (preset, attention launches per forward, merge launches per forward)
+SWITCH_MODELS = {"aff_mini": ("aff_mini.yaml", 10, 3),
+                 "maskfiner_ud_mini": ("maskfiner_up_down_mini.yaml", 16, 0)}
+PUBLISHED_AFF_MINI = {"params_m": 6.75, "gmacs": 1.08}  # BASELINE.md:14-15
+
+
+def expect_path(model, fwd_passes, train_steps=0, remat=False,
+                attn_drop=False):
+    """The launch counters of ``fwd_passes`` forwards outside training and
+    ``train_steps`` train steps of ``model`` (a ``SWITCH_MODELS`` name);
+    with ``remat`` every training step runs each attention forward twice
+    (the forward and the backward's recompute), each with statistics."""
+    _, attn, merges = SWITCH_MODELS[model]
+    want = dict.fromkeys(counters(), 0)
+    want.update(attention_launches(attn * fwd_passes, attn * train_steps,
+                                   attn_drop))
+    if remat:
+        for k in ("cluster_attention_fwd", "cluster_attention_fwd_stats"):
+            want[k] += attn * train_steps
+        if attn_drop:
+            want["cluster_attention_fwd_dropout"] += attn * train_steps
+    want["cluster_merge_fwd"] = merges * (fwd_passes + train_steps)
+    want["cluster_merge_bwd"] = merges * train_steps
+    want["merge_inverse_index"] = merges * train_steps
+    return want
+
+
+def phase_ops_check(torch):
+    """Each op of the ``mlaff`` namespace called as ``torch.ops.mlaff.*``
+    on the card (not through the wrappers) at AFF-Mini's stage 2 and
+    second merge, b = 8, fp32: the attention forward with statistics and
+    dropout, its saved backward under the same dropout, the merge forward
+    and backward, the inverse index; each against its plain version on the
+    same inputs (the backwards' in f64) within 1e-4 of max|ref| (the index
+    exactly), with one launch of its kernel (and its modes) per call."""
+    from ml_autofocusformermod_torch.ops.cluster_attention import (
+        cluster_attention_backward_reference, cluster_attention_reference,
+        tile_metadata,
+    )
+    from ml_autofocusformermod_torch.ops.cluster_merge import (
+        cluster_merge_backward_reference, cluster_merge_reference,
+        merge_inverse_index_reference,
+    )
+
+    ops = torch.ops.mlaff
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(9)
+    label, n, h, c, _ = ATTN_STAGES[1]
+    R = 224 // 4 - 1
+    a = attention_inputs(gen, 8, n, h, c, dev, torch.float32)
+    args = [a[k] for k in ATTN_ARGS]
+    meta = tile_metadata(a["ncc"])
+    g = torch.randn(a["q"].shape, generator=gen).to(dev)
+    geo = (h, CS, R, 0)
+    rate, seed = DROP
+    mlabel, mn, mn_, mc = MERGES[1]
+    w, feat, sel = merge_inputs(gen, 8, mn, mn_, mc, dev, torch.float32)
+    gm = torch.randn(8, mn_, IC, mc, generator=gen).to(dev)
+
+    def f64(ts):
+        return [t.double() if t.is_floating_point() and t is not a["pos"]
+                else t for t in ts]
+
+    saved = {}
+
+    def attn_fwd():
+        out, stats = ops.cluster_attention_fwd(*args, *meta, *geo, rate,
+                                               seed, True)
+        saved["out"] = (out, stats)
+        return (out, stats), cluster_attention_reference(
+            *args, *geo, drop=DROP, want_stats=True)
+
+    def attn_bwd():
+        got = ops.cluster_attention_bwd(*args, *meta, g, *saved["out"],
+                                        *geo, rate, seed)
+        dq, dkv, *small = cluster_attention_backward_reference(
+            *f64(args), g.double(), *geo, drop=DROP,
+            saved=tuple(t.double() for t in saved["out"]))
+        # the op's third output: the small parameters' gradients, flat
+        return got, (dq, dkv, torch.cat([t.reshape(-1) for t in small]))
+
+    def merge_fwd():
+        return (ops.cluster_merge_fwd(w, feat, sel, CS),
+                cluster_merge_reference(w, feat, sel, CS))
+
+    def merge_bwd():
+        return (ops.cluster_merge_bwd(w, feat, sel, CS, gm),
+                cluster_merge_backward_reference(w.double(), feat.double(),
+                                                 sel, CS, gm.double()))
+
+    def index():
+        return (ops.merge_inverse_index(sel, mn, CS),
+                merge_inverse_index_reference(sel, mn, CS))
+
+    cases = [
+        ("cluster_attention_fwd", label, attn_fwd,
+         ["cluster_attention_fwd", "cluster_attention_fwd_stats",
+          "cluster_attention_fwd_dropout"]),
+        ("cluster_attention_bwd", label, attn_bwd,
+         ["cluster_attention_bwd", "cluster_attention_bwd_saved",
+          "cluster_attention_bwd_dropout"]),
+        ("cluster_merge_fwd", mlabel, merge_fwd, ["cluster_merge_fwd"]),
+        ("cluster_merge_bwd", mlabel, merge_bwd,
+         ["cluster_merge_bwd", "merge_inverse_index"]),
+        ("merge_inverse_index", mlabel, index, ["merge_inverse_index"]),
+    ]
+    for op, shape, fn, launched in cases:
+        zero_counters()
+        got, ref = fn()
+        torch.cuda.synchronize()
+        launches = read_counters()
+        want = {k: int(k in launched) for k in launches}
+        if op == "merge_inverse_index":
+            err = 0.0 if all(torch.equal(x, y) for x, y in zip(got, ref)) \
+                else float("inf")
+            tol = 0.0
+        else:
+            err = max((x.double() - y.double()).abs().max().item()
+                      for x, y in zip(got, ref))
+            tol = 1e-4 * max(y.double().abs().max().item() for y in ref)
+        ok = (err <= tol and launches == want
+              and all(bool(x.isfinite().all()) for x in got
+                      if x.is_floating_point()))
+        emit({"phase": "ops_check", "op": f"mlaff::{op}", "shape": shape,
+              "b": 8, "dtype": "float32", "outputs": len(got),
+              "max_abs_err": err, "tol": tol, "launches": launches,
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"mlaff::{op} on the card: err {err} > "
+                                 f"{tol} or launches {launches}")
+
+
+def phase_remat_check(torch):
+    """One ``make_train_step`` step of AFF-Mini and of UD-Mini 224 (ratio
+    1.0), fp32, b = 2, with Dropout, DropPath and attention dropout all at
+    0.1, from equal states, for ``TPU.REMAT`` '' (twice), ``blocks`` and
+    ``dots``: the loss equal to the bit across all; each gradient equal to
+    the bit where the two '' runs are, else within twice their spread
+    (both printed: a few gradients sum with float atomics, the gathers'
+    backward); the generators' states after the step equal; the launches
+    per step as :func:`expect_path` says (remat: each attention forward
+    twice). cuDNN runs its deterministic algorithms meanwhile."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 224, 224)).astype(
+        np.float32)).cuda()
+    y = torch.tensor([3, 977]).cuda()
+    # cuDNN's conv backwards may pick algorithms that add with atomics,
+    # which makes even two plain runs differ in UD-Mini's first level
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _remat_check(torch, x, y)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _remat_check(torch, x, y):
+    from ml_autofocusformermod_torch.models.build import build_model
+    from ml_autofocusformermod_torch.models.layers import ClusterAttention
+    from ml_autofocusformermod_torch.train.trainer import (
+        create_train_state, make_train_step,
+    )
+
+    for name, (preset, attn, _) in SWITCH_MODELS.items():
+        if name == "aff_mini":
+            opts = ["MODEL.DROP_RATE", "0.1", "MODEL.DROP_PATH_RATE", "0.1"]
+            ratios = None
+        else:
+            levels = len(port_config(preset, []).MODEL.MR.NAME)
+            opts = ["MODEL.MR.DROP_RATE", str([0.1] * levels),
+                    "MODEL.MR.DROP_PATH_RATE", "0.1",
+                    "MODEL.MR.ATTN_DROP_RATE", str([0.1] * levels)]
+            ratios = RATIO_ONE[preset]
+
+        def one_step(mode):
+            cfg = port_config(preset, ["TPU.COMPUTE_DTYPE", "float32", *opts]
+                              + (["TPU.REMAT", mode] if mode else []))
+            model = build_model(cfg, "cuda", seed=0, upscale_ratios=ratios)
+            for mod in model.modules():  # AFF's presets have no such key
+                if isinstance(mod, ClusterAttention):
+                    mod.attn_drop.p = 0.1
+            state, schedule = create_train_state(cfg, model, 10)
+            step = make_train_step(cfg, state, schedule)
+            zero_counters()
+            out = step(x, y)
+            torch.cuda.synchronize()
+            launches = read_counters()
+            grads = {k: p.grad.detach().clone()
+                     for k, p in model.named_parameters()
+                     if p.grad is not None}
+            gens = {k: getattr(state, k).get_state() for k in GENERATORS}
+            return out["loss"].item(), grads, gens, launches
+
+        runs = {"": one_step(""), "again": one_step("")}
+        runs.update((mode, one_step(mode)) for mode in REMAT)
+        base = runs[""]
+        spread = {k: (g - runs["again"][1][k]).abs().max().item()
+                  for k, g in base[1].items()}
+        for mode in REMAT:
+            loss, grads, gens, launches = runs[mode]
+            errs = {k: (grads[k] - g).abs().max().item()
+                    for k, g in base[1].items()}
+            worst = max(errs, key=lambda k: errs[k] - 2 * spread[k])
+            grads_ok = set(grads) == set(base[1]) and all(
+                errs[k] <= 2 * spread[k] for k in errs)
+            want = expect_path(name, 0, 1, remat=True, attn_drop=True)
+            ok = (loss.hex() == base[0].hex() and grads_ok
+                  and all(torch.equal(gens[k], base[2][k]) for k in gens)
+                  and launches == want and math.isfinite(loss)
+                  and base[3] == expect_path(name, 0, 1, attn_drop=True))
+            emit({"phase": "remat_check", "model": name, "remat": mode,
+                  "dtype": "float32", "b": 2, "loss": loss,
+                  "loss_plain": base[0], "loss_plain_again": runs["again"][0],
+                  "grads": len(errs),
+                  "grads_bitwise_equal": sum(e == 0 for e in errs.values()),
+                  "grads_plain_runs_bitwise_equal": sum(
+                      s == 0 for s in spread.values()),
+                  "worst_grad": worst, "worst_grad_err": errs[worst],
+                  "worst_grad_plain_spread": spread[worst],
+                  "generators_equal": all(torch.equal(gens[k], base[2][k])
+                                          for k in gens),
+                  "launches_per_step": launches,
+                  "launches_per_step_plain": base[3], "ok": ok})
+            if not ok:
+                raise AssertionError(f"{name} TPU.REMAT {mode}: the step "
+                                     "differs from the plain one, or the "
+                                     "launches")
+
+
+def phase_remat_train(torch, smi, plain):
+    """``main`` training AFF-Mini and UD-Mini 224 (one synthetic epoch of 4
+    steps; UD-Mini's curriculum trains it at ratio 1.0) at b = 128 bf16
+    with ``--opts TPU.REMAT blocks`` and ``dots``: images/s after the first
+    step and the epoch's peak memory, beside the same run without remat
+    earlier in this call (``plain``: the ``train`` phase's and the
+    ``maskfiner_train`` phase's first epoch). Returns the launches of each
+    run by name (``<model>_remat_<mode>``)."""
+    import os
+    import shutil
+    import tempfile
+
+    by_run = {}
+    for (name, (preset, _, _)), mode in itertools.product(
+            SWITCH_MODELS.items(), REMAT):
+        out = tempfile.mkdtemp(prefix="chip_smoke_remat_")
+        try:
+            result, secs, launches = run_main(torch, [
+                "--cfg", preset_path(preset), "--device", "cuda",
+                "--data-path", "no_dataset", "--batch-size", "128",
+                "--epochs", "1", "--output", out,
+                "--opts", "TPU.REMAT", mode])
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+        train = result["train"]
+        epoch = train["epochs"][0]
+        # throughput protocol, 4 steps, 512 validation images / 128
+        ok = (launches == expect_path(name, 50 + 30 + 4, 4, remat=True)
+              and epoch["steps"] == 4 and epoch["skipped_steps"] == 0
+              and all(r in (0.0, 1.0) for r in epoch["ratios"] or [1.0])
+              and math.isfinite(train["train_loss"]))
+        peak, base_peak = epoch["peak_memory_bytes"], plain[name]["peak"]
+        emit({"phase": "remat_train", "model": name, "remat": mode,
+              "batch": 128, "dtype": "bfloat16", "steps": epoch["steps"],
+              "ratios": epoch["ratios"],
+              "img_per_s_after_first": epoch["img_s_after_first"],
+              "plain_img_per_s_after_first": plain[name]["img_s"],
+              "peak_memory_bytes": peak, "plain_peak_memory_bytes": base_peak,
+              "peak_memory_ratio": peak / base_peak,
+              "step_seconds": epoch["step_seconds"],
+              "train_loss": train["train_loss"], "card": smi,
+              "seconds": secs, "launches": launches, "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name} TPU.REMAT {mode} training run: "
+                                 f"launches {launches}")
+        by_run[f"{name}_remat_{mode}"] = launches
+    return by_run
+
+
+EXPORT_CHILD = r"""
+import importlib, json, sys, time
+import torch
+from ml_autofocusformermod_torch.ckpt.export import load_exported
+table, runs = json.loads(sys.argv[1])
+counters = {k: (getattr(importlib.import_module(
+    "ml_autofocusformermod_torch.ops." + m), f), a)
+    for k, (m, f, a) in table.items()}
+out = {}
+for name, path, inputs, logits in runs:
+    d = torch.load(inputs, map_location="cuda")
+    t0 = time.perf_counter()
+    fn = load_exported(path)
+    load_s = time.perf_counter() - t0
+    for f, a in counters.values():
+        setattr(f, a, 0)
+    y = fn(d["state"], d["x"])
+    torch.cuda.synchronize()
+    launches = {k: getattr(f, a) for k, (f, a) in counters.items()}
+    torch.save(y.cpu(), logits)
+    out[name] = {"load_seconds": load_s, "launches": launches}
+models = sorted(m for m in sys.modules
+                if m.startswith("ml_autofocusformermod_torch.models"))
+print(json.dumps({"runs": out, "models_imported": models}))
+"""
+
+
+def phase_export(torch):
+    """AFF-Mini and UD-Mini 224 at b = 128 bf16: ``export_forward`` on the
+    card (after the eager forward it runs to fill the caches), saved, then
+    loaded in a fresh process that imports no model code and called with
+    the model's state dict on the same images. Its logits must equal the
+    eager model's (max abs difference printed), and its launches an eager
+    forward's (AFF-Mini 10 attention + 3 merge, UD-Mini 16 attention).
+    Prints the export's seconds and the artifact's bytes. Returns the
+    child's launches by name (``<model>_export``)."""
+    import os
+    import shutil
+    import tempfile
+
+    from ml_autofocusformermod_torch.ckpt.export import (
+        export_forward, save_exported,
+    )
+    from ml_autofocusformermod_torch.models.build import build_model
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        gen = torch.Generator().manual_seed(11)
+        runs, eager, info = [], {}, {}
+        for name, (preset, _, _) in SWITCH_MODELS.items():
+            model = build_model(port_config(preset, []), "cuda", seed=0)
+            x = torch.randn(128, 3, 224, 224, generator=gen).cuda()
+            t0 = time.perf_counter()
+            data = export_forward(model, 128, 224)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            zero_counters()
+            with torch.no_grad():
+                eager[name] = model(x).float().cpu()
+            launches = read_counters()
+            path = os.path.join(tmp, f"{name}.pt2")
+            save_exported(path, data)
+            inputs = os.path.join(tmp, f"{name}_in.pt")
+            torch.save({"state": model.state_dict(), "x": x}, inputs)
+            runs.append((name, path, inputs,
+                         os.path.join(tmp, f"{name}_out.pt")))
+            info[name] = {"export_seconds": secs, "bytes": len(data),
+                          "eager_launches": launches}
+            del model, data
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", EXPORT_CHILD,
+             json.dumps([COUNTERS, runs])],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        child_secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError("loading the exported programs failed:\n"
+                                 + proc.stderr[-4000:])
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        by_run = {}
+        for name, _, _, logits in runs:
+            got = torch.load(logits)
+            err = (got.float() - eager[name]).abs().max().item()
+            launches = child["runs"][name]["launches"]
+            want = expect_path(name, 1)
+            ok = (err == 0.0 and launches == want
+                  and info[name]["eager_launches"] == want
+                  and not child["models_imported"]
+                  and tuple(got.shape) == (128, 1000))
+            emit({"phase": "export", "model": name, "batch": 128,
+                  "dtype": "bfloat16", **info[name],
+                  "load_seconds": child["runs"][name]["load_seconds"],
+                  "child_seconds": child_secs,
+                  "max_abs_diff_vs_eager": err, "launches": launches,
+                  "models_imported_by_loader": child["models_imported"],
+                  "ok": ok})
+            if not ok:
+                raise AssertionError(f"{name} exported forward: diff {err},"
+                                     f" launches {launches}")
+            by_run[f"{name}_export"] = launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return by_run
+
+
+def phase_flops(torch, smi):
+    """``main --throughput --opts PRINT_FLOPS True`` for AFF-Mini and
+    UD-Mini 224 (b = 128 bf16): GFLOPs per image (FlopCounterMode, two
+    per multiply-add, the fused kernels through their formulas) and the
+    parameters; for AFF-Mini beside the published 6.75 M parameters and
+    1.08 G ptflops MACs (``BASELINE.md``), which count one per
+    multiply-add and miss the attention, a custom op ptflops cannot see."""
+    for name, (preset, _, _) in SWITCH_MODELS.items():
+        result, secs, launches = run_main(torch, [
+            "--cfg", preset_path(preset), "--device", "cuda",
+            "--data-path", "no_dataset", "--throughput",
+            "--batch-size", "128", "--opts", "PRINT_FLOPS", "True"])
+        cost = result["complexity"]
+        # the count's own forward (b = 1), then the throughput protocol
+        ok = (launches == expect_path(name, 1 + 50 + 30)
+              and cost["flops"] > 0 and math.isfinite(cost["peak_bytes"]))
+        line = {"phase": "flops", "model": name,
+                "gflops_per_image": cost["flops"] / 1e9,
+                "gmacs_per_image": cost["flops"] / 2e9,
+                "params": cost["params"],
+                "fwd_b1_peak_bytes": cost["peak_bytes"],
+                "img_per_s": result["throughput_img_s"], "card": smi,
+                "seconds": secs, "launches": launches, "ok": ok}
+        if name == "aff_mini":
+            line.update(published_params_m=PUBLISHED_AFF_MINI["params_m"],
+                        published_gmacs_ptflops=PUBLISHED_AFF_MINI["gmacs"],
+                        relation="FlopCounterMode counts 2 per MAC and sees "
+                        "the attention op and the geometry's products; "
+                        "ptflops counts 1 per MAC of nn modules only")
+            ok = ok and round(cost["params"] / 1e6, 2) == 6.75
+            line["ok"] = ok
+        emit(line)
+        if not ok:
+            raise AssertionError(f"{name} PRINT_FLOPS run: {cost}, "
+                                 f"launches {launches}")
+
+
+# the CUDA kernels by name in a trace, and the counter each matches
+TRACE_KERNELS = {"cluster_attention_fwd_kernel": "cluster_attention_fwd",
+                 "cluster_attention_bwd_saved_kernel":
+                     "cluster_attention_bwd_saved",
+                 "cluster_merge_fwd_": "cluster_merge_fwd",
+                 "cluster_merge_bwd_": "cluster_merge_bwd",
+                 "merge_index_kernel": "merge_inverse_index"}
+
+
+def phase_profile(torch, smi):
+    """``main --profile DIR`` on AFF-Mini 224 b = 128 bf16, one synthetic
+    epoch of 4 steps, the window steps [1, 3): the trace must hold exactly
+    2 ``train_step`` spans, and each fused kernel by its CUDA name as often
+    as its launch counter counts over 2 steps. Returns the run's
+    launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from ml_autofocusformermod_torch.utils.profiling import STEP_SPAN
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        result, secs, launches = run_main(torch, [
+            "--cfg", preset_path("aff_mini.yaml"), "--device", "cuda",
+            "--data-path", "no_dataset", "--batch-size", "128",
+            "--epochs", "1", "--output", os.path.join(out, "run"),
+            "--profile", os.path.join(out, "trace"),
+            "--opts", "PROFILE_START", "1", "PROFILE_STEPS", "2"])
+        path = result["train"]["profile"]
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    # the host's spans (the card's copies of them are "gpu_user_annotation")
+    spans = sum(e.get("name") == STEP_SPAN and e.get("ph") == "X"
+                and e.get("cat") == "user_annotation" for e in events)
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    per_step = expect_path("aff_mini", 0, 1)
+    found = {sub: sum(sub in k for k in kernels) for sub in TRACE_KERNELS}
+    want = {sub: 2 * per_step[c] for sub, c in TRACE_KERNELS.items()}
+    ok = (spans == 2 and found == want
+          and launches == expect_path("aff_mini", 50 + 30 + 4, 4))
+    emit({"phase": "profile", "model": "aff_mini", "batch": 128,
+          "dtype": "bfloat16", "window_steps": 2, "step_spans": spans,
+          "kernels_in_trace": found, "kernels_from_counters": want,
+          "kernel_events": len(kernels), "trace_bytes": size, "card": smi,
+          "seconds": secs, "launches": launches, "ok": ok})
+    if not ok:
+        raise AssertionError(f"profile run: {spans} spans, kernels {found} "
+                             f"against {want}")
+    return launches
+
+
 def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
                  mft_launches):
     """One entry per CUDA kernel: launches in the training run of the entry
@@ -2269,13 +2790,22 @@ def main() -> int:
         phase_maskfiner_train_check(torch)
         phase_dropout(torch)
         phase_entry(torch, smi)
-        launches, aff_img_s = phase_train(torch, smi)
+        launches, aff_img_s, aff_peak = phase_train(torch, smi)
         mf_launches = phase_maskfiner_entry(torch, smi)
-        mft_launches, mf_img_s = phase_maskfiner_train(torch, smi)
+        mft_launches, mf_img_s, mf_peak = phase_maskfiner_train(torch, smi)
         mft_launches.update(phase_real_data(
             torch, smi, env,
             {"aff_mini": aff_img_s,
              "maskfiner_ud_mini": mf_img_s["maskfiner_ud_mini"]}))
+        phase_ops_check(torch)
+        phase_remat_check(torch)
+        mft_launches.update(phase_remat_train(torch, smi, {
+            "aff_mini": {"img_s": aff_img_s, "peak": aff_peak},
+            "maskfiner_ud_mini": {"img_s": mf_img_s["maskfiner_ud_mini"],
+                                  "peak": mf_peak["maskfiner_ud_mini"]}}))
+        mft_launches.update(phase_export(torch))
+        phase_flops(torch, smi)
+        mft_launches["aff_mini_profile"] = phase_profile(torch, smi)
         line = kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
                             mft_launches)
     finally:

@@ -4,7 +4,8 @@
     python -m ml_autofocusformermod_torch.main --cfg <yaml> [--eval]
         [--throughput] [--resume CKPT] [--batch-size N] [--epochs N]
         [--blr LR] [--data-path P] [--accumulation-steps N] [--output DIR]
-        [--tag T] [--device cuda|cpu] [--opts KEY VALUE ...]
+        [--tag T] [--profile DIR] [--device cuda|cpu]
+        [--opts KEY VALUE ...]
 
 Reads the ImageFolder under ``--data-path`` (``<path>/train`` and
 ``<path>/val``; synthetic images where a split is absent) and takes
@@ -15,16 +16,22 @@ seeded random init, and loads weights in the JAX package's order
 reference ``.pth`` loads the weights only, a checkpoint of the port
 (``--resume``, else with ``TRAIN.AUTO_RESUME`` the newest under
 ``<output>/<model name>/<tag>``) its model, and in training its whole
-train state. It then measures throughput on the first validation batch (50
-warmup + 30 timed forwards, as the reference always does first).
+train state. With ``PRINT_FLOPS`` it logs the forward's
+GFLOPs per image (``utils/flops.py``). It then measures throughput on the
+first validation batch (50 warmup + 30 timed forwards, as the reference
+always does first).
 ``--throughput`` stops there; ``--eval`` validates and prints acc@1 /
 acc@5 / loss. Otherwise it trains: per epoch the train steps over the
 train split (fresh augmentations each epoch), a checkpoint and a
 validation; a MaskFiner model follows its upsampling curriculum (the
 ratios anneal from 1.0 to the configured ones, quantised to 1/20, applied
 at the start of an epoch). Batches reach the device through
-``data/prefetch.py``. Runs on ``cuda`` unless ``--device cpu``; with no
-GPU it raises.
+``data/prefetch.py``. With ``PROFILE`` (``--profile DIR``) the train
+steps ``[PROFILE_START, PROFILE_START + PROFILE_STEPS)`` are traced into
+that directory (``utils/profiling.py``). ``TPU.REMAT`` recomputes each
+block's forward in the backward. Settings the port cannot honour (the
+mesh keys, ``TPU.ZERO1``, ``TPU.USE_PALLAS: false`` on the card) raise.
+Runs on ``cuda`` unless ``--device cpu``; with no GPU it raises.
 """
 
 from __future__ import annotations
@@ -47,14 +54,16 @@ from .ckpt.pth_import import load_reference_weights
 from .config import get_config
 from .data.imagenet import build_loaders
 from .data.prefetch import prefetch_to_device
-from .models.build import build_model
+from .models.build import build_model, check_switches
 from .train import curriculum
 from .train.optim import scale_base_lr
 from .train.trainer import (create_train_state, make_eval_step,
                             make_train_step, throughput)
+from .utils.flops import model_complexity
 from .utils.logger import create_logger
 from .utils.meters import AverageMeter
 from .utils.metrics_log import MetricsLogger
+from .utils.profiling import STEP_SPAN, StepProfiler
 
 
 def parse_option(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -74,6 +83,9 @@ def parse_option(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--tag", type=str, help="tag of experiment")
     parser.add_argument("--blr", type=float, help="base learning rate")
     parser.add_argument("--epochs", type=int, help="epochs")
+    parser.add_argument("--profile", type=str, default=None, metavar="DIR",
+                        help="trace a few train steps with torch.profiler "
+                             "into DIR (Perfetto/TensorBoard format)")
     parser.add_argument("--eval", action="store_true",
                         help="Perform evaluation only")
     parser.add_argument("--throughput", action="store_true",
@@ -167,6 +179,12 @@ def train(config, state, schedule, device, loader, val, logger,
                     if curriculum.applies_to(model) else None)
     prev_ratios = None
     cuda = device.type == "cuda"
+    profiler = StepProfiler(config.PROFILE, start=config.PROFILE_START,
+                            count=config.PROFILE_STEPS)
+    if config.PROFILE:
+        logger.info(f"profiler: tracing steps [{config.PROFILE_START}, "
+                    f"{config.PROFILE_START + config.PROFILE_STEPS}) to "
+                    f"{config.PROFILE}")
 
     logger.info("Start training")
     start = time.time()
@@ -195,8 +213,10 @@ def train(config, state, schedule, device, loader, val, logger,
         for idx, batch in enumerate(prefetch_to_device(loader, device)):
             ts = time.perf_counter()
             wait_seconds.append(ts - t_prev)  # waiting for this batch
-            # .float(): a DATA.TRANSPORT_DTYPE float16 batch
-            metrics = train_step(batch["image"].float(), batch["label"])
+            profiler.step(state.step)
+            with torch.profiler.record_function(STEP_SPAN):
+                # .float(): a DATA.TRANSPORT_DTYPE float16 batch
+                metrics = train_step(batch["image"].float(), batch["label"])
             loss = metrics["loss"].item()  # waits for the step
             step_seconds.append(time.perf_counter() - ts)
             meters["loss"].update(loss)
@@ -270,6 +290,8 @@ def train(config, state, schedule, device, loader, val, logger,
                 logger.info(f"EMA Accuracy: {ema['acc1']:.2f}% / "
                             f"{ema['acc5']:.2f}%")
                 result.update(ema_acc1=ema["acc1"], ema_acc5=ema["acc5"])
+    profiler.stop()
+    result["profile"] = profiler.path
     metrics_log.finish()
     logger.info(f"Training time "
                 f"{datetime.timedelta(seconds=int(time.time() - start))}")
@@ -284,6 +306,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     args = parse_option(argv)
     config = get_config(args)
     device = resolve_device(args.device)
+    check_switches(config, device)
     # linear LR scaling over the batch (reference main.py:437-449)
     config.defrost()
     scale_base_lr(config, config.DATA.BATCH_SIZE)
@@ -322,12 +345,21 @@ def main(argv: Optional[List[str]] = None) -> dict:
     log(f"{config.MODEL.NAME}: {n_params} params, "
         f"{config.TPU.COMPUTE_DTYPE}, batch {config.DATA.BATCH_SIZE}, "
         f"{num_classes} classes")
+    cost = None
+    if config.PRINT_FLOPS:
+        # JAX main.py:135-155; a count that fails fails the run
+        cost = model_complexity(model, config.DATA.IMG_SIZE)
+        log(f"number of GFLOPs: {cost['flops'] / 1e9:.2f} "
+            f"(torch FlopCounterMode, fwd per image)")
+        if cost["peak_bytes"] == cost["peak_bytes"]:  # not NaN
+            log(f"fwd peak device memory: "
+                f"{cost['peak_bytes'] / 2**20:.1f} MiB")
 
     batch = next(iter(val_loader))
     fps = throughput(model, batch["image"].to(device).float())
     log(f"throughput averaged with 30 times: {fps:.1f} img/s")
     result = {"throughput_img_s": fps, "num_classes": num_classes,
-              "weights": weights}
+              "weights": weights, "complexity": cost}
     if config.THROUGHPUT_MODE:
         print(json.dumps(result), flush=True)
         return result

@@ -30,7 +30,9 @@ from .layers import (
     LayerNormFp32,
     Linear,
     PatchEmbed,
+    check_remat,
     rel_pos_features,
+    remat_call,
 )
 
 __all__ = ["BasicLayer", "AutoFocusFormer"]
@@ -45,10 +47,11 @@ class BasicLayer(nn.Module):
                  reserve_on: bool = True, layer_scale: float = 0.0,
                  rel_pos_width: int = 55, compute_dtype=torch.float32,
                  drop: float = 0.0, attn_drop: float = 0.0,
-                 drop_path: Sequence[float] = ()):
+                 drop_path: Sequence[float] = (), remat: str = ""):
         super().__init__()
         if cluster_size <= 1:
             raise ValueError("cluster_size must be > 1")
+        self.remat = check_remat(remat)
         self.cluster_size = cluster_size
         self.nbhd_size = nbhd_size
         self.rel_pos_width = rel_pos_width
@@ -97,7 +100,8 @@ class BasicLayer(nn.Module):
                 cluster_mask = (cluster_token_index(ncc, m) < n).to(torch.int32)
 
         for blk in self.blocks:
-            feat = blk(feat, global_attn, pe_feat, ncc, m, pos, tile_meta)
+            feat = remat_call(self.remat, blk, feat, global_attn, pe_feat,
+                              ncc, m, pos, tile_meta)
 
         if self.downsample is not None:
             learned_prob = torch.sigmoid(self.prob_net(feat))
@@ -112,7 +116,9 @@ class BasicLayer(nn.Module):
 
 class AutoFocusFormer(nn.Module):
     """The AFF classifier. Input NCHW images, output (b, num_classes)
-    logits in the compute dtype."""
+    logits in the compute dtype. ``remat`` (``TPU.REMAT``): '', 'blocks'
+    or 'dots', the backward's recompute of each block
+    (:func:`layers.remat_call`)."""
 
     def __init__(self, num_classes: int = 1000,
                  embed_dim: Sequence[int] = (32, 128, 256, 512),
@@ -125,7 +131,8 @@ class AutoFocusFormer(nn.Module):
                  mlp_ratio: float = 2.0, patch_norm: bool = True,
                  layer_scale: float = 0.0, img_size: int = 224,
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
-                 drop_path_rate: float = 0.0, compute_dtype=torch.float32):
+                 drop_path_rate: float = 0.0, compute_dtype=torch.float32,
+                 remat: str = ""):
         super().__init__()
         self.num_classes = num_classes
         self.compute_dtype = compute_dtype
@@ -146,6 +153,7 @@ class AutoFocusFormer(nn.Module):
                 compute_dtype=compute_dtype, drop=drop_rate,
                 attn_drop=attn_drop_rate,
                 drop_path=dpr[sum(depths[:i]):sum(depths[:i + 1])],
+                remat=remat,
             )
             for i in range(num_layers)
         )

@@ -10,12 +10,37 @@ from .aff import AutoFocusFormer
 from .maskfiner_ot import build_oracle_teacher
 from .maskfiner_ud import build_up_down
 
-__all__ = ["build_model", "DTYPES"]
+__all__ = ["build_model", "check_switches", "DTYPES"]
 
 DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
 }
+
+
+def check_switches(config, device) -> None:
+    """Refuse the JAX package's settings that the port cannot honour on one
+    card, rather than ignore them: tensor and sequence parallelism, ZeRO-1
+    and a data mesh of more than one device (ROADMAP A11, not ported), and
+    ``TPU.USE_PALLAS: false`` on the card, which has no kernel-free route
+    (the CPU path is the plain version anyway)."""
+    tpu = config.TPU
+    a11 = "is not ported (ROADMAP A11: parallelism across cards)"
+    if int(tpu.MESH_MODEL) > 1:
+        raise ValueError(f"TPU.MESH_MODEL={tpu.MESH_MODEL}: tensor "
+                         f"parallelism {a11}")
+    if int(tpu.MESH_SEQ) > 1:
+        raise ValueError(f"TPU.MESH_SEQ={tpu.MESH_SEQ}: sequence "
+                         f"parallelism {a11}")
+    if tpu.ZERO1:
+        raise ValueError(f"TPU.ZERO1: sharded optimizer state {a11}")
+    if int(tpu.MESH_DATA) not in (-1, 1):
+        raise ValueError(f"TPU.MESH_DATA={tpu.MESH_DATA}: data parallelism "
+                         f"{a11}; the port runs on one device (-1 or 1)")
+    if not tpu.USE_PALLAS and torch.device(device).type == "cuda":
+        raise ValueError("TPU.USE_PALLAS=False: the port has no kernel-free "
+                         "route on the card; run --device cpu for the plain "
+                         "version")
 
 
 def build_model(config, device="cuda", seed=None, upscale_ratios=None):
@@ -31,9 +56,12 @@ def build_model(config, device="cuda", seed=None, upscale_ratios=None):
     dropout rates are ``MODEL.DROP_RATE``, ``MODEL.DROP_PATH_RATE`` and
     ``MODEL.ATTN_DROP_RATE`` (absent from the config tree, so 0, as the JAX
     package's ``build_model`` leaves it), MaskFiner's those of
-    ``MODEL.MR``.
+    ``MODEL.MR``; ``TPU.REMAT`` sets every block's recompute in the
+    backward (``layers.remat_call``). Settings the port cannot honour raise
+    (:func:`check_switches`).
     """
     dev = resolve_device(device)
+    check_switches(config, dev)
     model_type = config.MODEL.TYPE
     if model_type not in ("aff", "maskfinerOT", "maskfinerUD"):
         raise NotImplementedError(f"Unknown model type: {model_type}")
@@ -66,6 +94,7 @@ def build_model(config, device="cuda", seed=None, upscale_ratios=None):
             attn_drop_rate=config.MODEL.get("ATTN_DROP_RATE", 0.0),
             drop_path_rate=config.MODEL.DROP_PATH_RATE,
             compute_dtype=dtype,
+            remat=str(config.TPU.REMAT),
         )
     gen = torch.Generator().manual_seed(config.SEED if seed is None else seed)
     model.init_weights(gen)

@@ -1,5 +1,5 @@
 """Core AFF building blocks (counterpart of the JAX package's
-``models/layers.py``), inference side.
+``models/layers.py``).
 
 Attribute names follow the reference torch module tree, so ``state_dict()``
 keys equal what the JAX package's ``ckpt/pth_import.py::_torch_key`` maps
@@ -12,15 +12,21 @@ autocast), and LayerNorm, softmax, kNN and clustering run in float32.
 The JAX package's ``training`` flag is ``module.train()``: in training mode
 Dropout and DropPath are active and PatchEmbed's BatchNorm normalises with
 the batch statistics and updates its running stats with flax's semantics.
+:func:`remat_call` is the JAX package's ``remat_wrap`` (``TPU.REMAT``): the
+block loops run each transformer block through it. No BatchNorm sits
+inside a block, so a recompute never updates running statistics twice.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops import cluster_attention as attention_ops
 from ..ops.cluster_attention import fused_cluster_attention, offset_features
@@ -33,8 +39,86 @@ __all__ = [
     "Linear", "LayerNormFp32", "rel_pos_features", "Dropout", "DropPath",
     "Mlp",
     "ClusterAttention", "ClusterTransformerBlock", "ClusterMerging",
-    "PatchEmbed", "batch_norm_train",
+    "PatchEmbed", "batch_norm_train", "REMAT_MODES", "check_remat",
+    "remat_call",
 ]
+
+REMAT_MODES = ("", "blocks", "dots")
+# the products whose outputs ``dots`` keeps: a 2-D matmul, what nn.Linear on
+# (b, n, c) becomes (JAX: dot_generals without batch dimensions)
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def check_remat(mode: str) -> str:
+    """``mode`` if it is one of :data:`REMAT_MODES`, else ValueError with
+    the JAX package's message."""
+    if mode not in REMAT_MODES:
+        raise ValueError(
+            f"Unknown remat mode: {mode!r} (use '', 'blocks', 'dots')")
+    return mode
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of 2-D
+    products, recompute everything else (batched matmuls, the attention
+    op, the elementwise interior)."""
+    if op in _SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _explicit_generators(block: nn.Module):
+    """The distinct ``torch.Generator`` objects ``block``'s Dropout,
+    DropPath and attention dropout draw from (those the trainer set;
+    torch's default generators are left to checkpoint's own
+    ``preserve_rng_state``)."""
+    gens = {}
+    for mod in block.modules():
+        for gen in (getattr(mod, "generator", None),
+                    getattr(mod, "attn_drop_generator", None)):
+            if isinstance(gen, torch.Generator):
+                gens[id(gen)] = gen
+    return list(gens.values())
+
+
+def remat_call(mode: str, block: nn.Module, *args):
+    """``block(*args)``, rematerialised in the backward as the JAX
+    package's ``remat_wrap`` gates a block (``models/layers.py:69-93``):
+    ``''`` runs it as is; ``'blocks'`` keeps only its inputs and recomputes
+    its forward in the backward (``torch.utils.checkpoint``, non-reentrant);
+    ``'dots'`` does the same but keeps the outputs of 2-D products
+    (:func:`_dots_policy`). Without autograd recording there is nothing to
+    keep, and the block runs as is.
+
+    The recompute draws the same random numbers as the forward: the
+    explicit generators' states are taken before the forward, set at the
+    start of the recompute and, after it, set back to where they were when
+    it began, so the next step starts where it would without remat (JAX's
+    ``nn.remat`` lifts its rngs the same way); checkpoint restores torch's
+    default generators itself. The numerics are those of ``''`` bit for
+    bit."""
+    if not mode or not torch.is_grad_enabled():
+        return block(*args)
+    gens = _explicit_generators(block)
+    stash = []
+
+    def run(*a):
+        if not stash:  # the forward
+            stash.append([g.get_state() for g in gens])
+            return block(*a)
+        now = [g.get_state() for g in gens]  # the recompute
+        for g, state in zip(gens, stash[0]):
+            g.set_state(state)
+        try:
+            return block(*a)
+        finally:
+            for g, state in zip(gens, now):
+                g.set_state(state)
+
+    context = (functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy) if mode == "dots" else None)
+    kwargs = {"context_fn": context} if context else {}
+    return checkpoint(run, *args, use_reentrant=False, **kwargs)
 
 
 class Linear(nn.Linear):

@@ -114,7 +114,8 @@ def build_backbones(config, dtype, upscale_ratios, level_args,
             n_heads=mr.NUM_HEADS[i], mlp_ratio=mr.MLP_RATIO[i],
             dropout=mr.DROP_RATE[i], split_ratio=mr.SPLIT_RATIO[i],
             n_scales=mr.N_RESOLUTION_SCALES, upscale_ratio=ratios[i],
-            compute_dtype=dtype, **level_args(i))
+            compute_dtype=dtype, remat=str(config.TPU.REMAT),
+            **level_args(i))
         scale = args.pop("scale")
         if name == "MixResViT":
             bb = MixResViT(**args, **(vit_args or {}))

@@ -30,7 +30,7 @@ from ..ops.cluster_gather import gather_rows
 from ..ops.knn import knn
 from ..ops.sfc import space_filling_cluster
 from .layers import ClusterTransformerBlock, LayerNormFp32, Linear, \
-    rel_pos_features
+    check_remat, rel_pos_features, remat_call
 from .mixres_common import (
     MIXRES_REL_POS_WIDTH,
     MIXRES_TABLE_WIDTH,
@@ -63,8 +63,9 @@ class MixResBasicLayer(nn.Module):
     def __init__(self, dim, cluster_size, nbhd_size, depth, num_heads,
                  mlp_ratio, drop: float = 0.0, attn_drop: float = 0.0,
                  drop_path: Sequence[float] = (), layer_scale: float = 0.0,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, remat: str = ""):
         super().__init__()
+        self.remat = check_remat(remat)
         self.cluster_size = cluster_size
         self.nbhd_size = nbhd_size
         drop_path = list(drop_path) or [0.0] * depth
@@ -104,7 +105,8 @@ class MixResBasicLayer(nn.Module):
             ncc = knn(pos, mean_pos, nnc)
             meta = tile_metadata(ncc)  # once for every block of the stage
         for blk in self.blocks:
-            feat = blk(feat, global_attn, pe_feat, ncc, m, pos, meta)
+            feat = remat_call(self.remat, blk, feat, global_attn, pe_feat,
+                              ncc, m, pos, meta)
         return torch.cat([pos_scale, pos], dim=2), feat
 
 
@@ -123,7 +125,7 @@ class MixResNeighbour(nn.Module):
                  add_image_data_to_all: bool = False,
                  first_layer: bool = False,
                  out_features: Sequence[str] = ("res5",),
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, remat: str = ""):
         super().__init__()
         self.patch_sizes = tuple(patch_sizes)
         self.d_model = d_model
@@ -163,7 +165,8 @@ class MixResNeighbour(nn.Module):
                 self.token_projection = Linear(channels, d_model, dt)
         self.layers = MixResBasicLayer(
             d_model, cluster_size, nbhd_size, n_layers, n_heads, mlp_ratio,
-            dropout, attn_drop_rate, tuple(drop_path_rate), layer_scale, dt)
+            dropout, attn_drop_rate, tuple(drop_path_rate), layer_scale, dt,
+            remat)
         self.norm_out = LayerNormFp32(d_model)
 
     @property

@@ -15,7 +15,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import Dropout, DropPath, LayerNormFp32, Linear
+from .layers import (Dropout, DropPath, LayerNormFp32, Linear, check_remat,
+                     remat_call)
 from .mixres_common import (
     OverlapPatchEmbedding,
     grid_positions,
@@ -131,8 +132,9 @@ class MixResViT(nn.Module):
                  first_layer: bool = True, layer_scale: float = 0.0,
                  num_register_tokens: int = 0,
                  out_features: Sequence[str] = ("res5",),
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, remat: str = ""):
         super().__init__()
+        self.remat = check_remat(remat)
         self.patch_sizes = tuple(patch_sizes)
         self.d_model = d_model
         self.channels = channels
@@ -194,7 +196,7 @@ class MixResViT(nn.Module):
             reg = self.register_tokens.to(x.dtype)
             x = torch.cat([reg.expand(b, *reg.shape[1:]), x], dim=1)
         for blk in self.layers["blocks"]:
-            x = blk(x, patched[0], patched[1])
+            x = remat_call(self.remat, blk, x, patched[0], patched[1])
         x = x[:, self.num_register_tokens:]
 
         name = self.out_features[0]

@@ -1,13 +1,16 @@
 """Fused local cluster attention (counterpart of ``fused_cluster_attention``
 in the JAX package's ``ops/clusten_pallas.py``).
 
-:func:`fused_cluster_attention` is a ``torch.autograd.Function`` on both
-devices. Its forward launches the CUDA kernel ``csrc/cluster_attention.cu``
-on a CUDA tensor and runs :func:`cluster_attention_reference`, the plain
-PyTorch version, on a CPU tensor; its backward
-(:func:`cluster_attention_backward`) launches ``csrc/cluster_attention_bwd.cu``
-on a CUDA tensor and runs :func:`cluster_attention_backward_reference` on a
-CPU tensor. There is no fallback between the two.
+The forward and the backward are dispatcher ops,
+``torch.ops.mlaff.cluster_attention_fwd`` and ``..._bwd``, the forward
+with an autograd formula that calls the backward. On a CUDA tensor the
+forward launches the CUDA kernel ``csrc/cluster_attention.cu`` and the
+backward ``csrc/cluster_attention_bwd{,_saved}.cu``; on a CPU tensor they
+run :func:`cluster_attention_reference` and
+:func:`cluster_attention_backward_reference`, the plain PyTorch versions.
+There is no fallback between the two. Each op has a fake kernel, so
+``torch.export`` traces it and ``FlopCounterMode`` and selective
+checkpointing see it.
 
 Two modes of the JAX kernels are kept. The saved-stats mode (JAX
 ``_fca_fwd``, the default; ``MLAFF_BWD_SAVED=0`` selects the recompute
@@ -472,31 +475,70 @@ def _drop_args(drop, c_, *rows):
     return [1, seed, *_drop_params(rate)]
 
 
-def cluster_attention_forward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
-                              blank_v, num_heads, cs, rel_width,
-                              clamp_width=0, meta=None, drop=None,
-                              want_stats=False):
-    """The forward: the CUDA kernel on a CUDA tensor (counted in
-    ``fused_cluster_attention.launches``, and in its ``stats_launches``
-    and ``drop_launches`` where it writes the statistics or drops), the
-    plain version on the CPU. ``drop = (rate, seed)`` with a host integer
-    seed; ``want_stats``: also return the (b, n, 2h) f32 statistics of
-    :func:`cluster_attention_reference`."""
-    if q.device.type == "cpu":
-        return cluster_attention_reference(
-            q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v,
-            num_heads, cs, rel_width, clamp_width, drop=drop,
-            want_stats=want_stats)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+# ---------------------------------------------------------------- ops ----
+# Each kernel entry is a dispatcher op of the ``mlaff`` namespace, so that
+# torch.export, FlopCounterMode, selective checkpointing and the profiler
+# see it: a CPU kernel (the plain version), a CUDA kernel (the launch,
+# counted), a fake kernel (shapes and dtypes only) and, for the forward,
+# an autograd formula. The tile metadata travels as its three tensors
+# (absent: the CUDA kernel makes it), dropout as its rate (0: none) and
+# host seed. The backward returns the four small parameters' gradients as
+# one flat vector (d_pe_kernel, d_pe_bias, d_blank_k, d_blank_v, each
+# row-major), the kernel's per-tile rows summed once: an op's outputs may
+# not share storage, and four copies would cost four launches.
+
+_LIB = torch.library.Library("mlaff", "FRAGMENT")
+_LIB.define(
+    "cluster_attention_fwd(Tensor q, Tensor kv, Tensor ncc, Tensor pos, "
+    "Tensor pe_kernel, Tensor pe_bias, Tensor blank_k, Tensor blank_v, "
+    "Tensor? ucl, Tensor? ucount, Tensor? nidx, int num_heads, int cs, "
+    "int rel_width, int clamp_width, float drop_rate, int drop_seed, "
+    "bool want_stats) -> (Tensor out, Tensor stats)")
+_LIB.define(
+    "cluster_attention_bwd(Tensor q, Tensor kv, Tensor ncc, Tensor pos, "
+    "Tensor pe_kernel, Tensor pe_bias, Tensor blank_k, Tensor blank_v, "
+    "Tensor? ucl, Tensor? ucount, Tensor? nidx, Tensor g_out, Tensor? out, "
+    "Tensor? stats, int num_heads, int cs, int rel_width, int clamp_width, "
+    "float drop_rate, int drop_seed) -> (Tensor dq, Tensor dkv, "
+    "Tensor d_small)")
+
+
+def _drop(rate, seed):
+    return (float(rate), int(seed)) if rate > 0.0 else None
+
+
+def _meta(ucl, ucount, nidx):
+    return None if ucl is None else TileMeta(ucl, ucount, nidx)
+
+
+def _stats_dtype(q):
+    return torch.promote_types(q.dtype, torch.float32)
+
+
+def _fwd_cpu(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
+             ucount, nidx, num_heads, cs, rel_width, clamp_width, drop_rate,
+             drop_seed, want_stats):
+    res = cluster_attention_reference(
+        q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, num_heads, cs,
+        rel_width, clamp_width, drop=_drop(drop_rate, drop_seed),
+        want_stats=want_stats)
+    if want_stats:
+        return res
+    return res, q.new_empty((0,), dtype=_stats_dtype(q))
+
+
+def _fwd_cuda(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
+              ucount, nidx, num_heads, cs, rel_width, clamp_width, drop_rate,
+              drop_seed, want_stats):
     _check_cuda_args(q, kv, ncc, pos, num_heads)
     b, n, c = q.shape
     h = num_heads
-    meta, batched = _meta_args(meta, ncc)
+    drop = _drop(drop_rate, drop_seed)
+    meta, batched = _meta_args(_meta(ucl, ucount, nidx), ncc)
     params = _small_params(q, h, pe_kernel, pe_bias, blank_k, blank_v)
     out = torch.empty_like(q)
-    stats = (torch.empty((b, n, 2 * h), dtype=torch.float32, device=q.device)
-             if want_stats else None)
+    stats = torch.empty((b, n, 2 * h) if want_stats else (0,),
+                        dtype=torch.float32, device=q.device)
     fn = _build.library("cluster_attention").cluster_attention_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
@@ -507,44 +549,53 @@ def cluster_attention_forward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
         _launch(fn, "cluster_attention_fwd", q.data_ptr(), kv.data_ptr(),
                 pos.data_ptr(), *(t.data_ptr() for t in meta),
                 *(t.data_ptr() for t in params), out.data_ptr(),
-                None if stats is None else stats.data_ptr(), b, n, h,
+                stats.data_ptr() if want_stats else None, b, n, h,
                 c // h, ncc.shape[2], cs, int(rel_width), int(clamp_width),
                 pos.stride(0), batched, _DTYPE_CODE[q.dtype],
                 *_drop_args(drop, c // h, q, kv, out), stream)
     fused_cluster_attention.launches += 1
     fused_cluster_attention.stats_launches += want_stats
     fused_cluster_attention.drop_launches += drop is not None
-    return (out, stats) if want_stats else out
+    return out, stats
 
 
-def cluster_attention_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
-                               blank_v, g_out, num_heads, cs, rel_width,
-                               clamp_width=0, meta=None, saved=None,
-                               drop=None):
-    """Gradients of the fused attention with respect to ``q, kv, pe_kernel,
-    pe_bias, blank_k, blank_v``, each in its input's dtype.
+def _fwd_fake(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
+              ucount, nidx, num_heads, cs, rel_width, clamp_width, drop_rate,
+              drop_seed, want_stats):
+    b, n, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, n, 2 * num_heads) if want_stats else (0,),
+                        dtype=_stats_dtype(q)))
 
-    ``saved = (out, stats)``: the forward's output and statistics, the
-    saved-stats mode; None recomputes them. ``drop = (rate, seed)``:
-    the forward's dropout, replayed.
 
-    On a CUDA tensor this launches ``csrc/cluster_attention_bwd_saved.cu``
-    with ``saved``, ``csrc/cluster_attention_bwd.cu`` without (and
-    adds one to ``cluster_attention_backward.launches``, and to its
-    ``saved_launches`` and ``drop_launches`` in those modes), with
-    ``meta`` the :class:`TileMeta` of ``ncc`` (computed when None); on a
-    CPU tensor it runs :func:`cluster_attention_backward_reference`. The
-    CUDA path adds no float atomics: a repeated call gives the same bits.
-    Its scratch is the tiles' dk/dv partials, ``b * ceil(n / TILE) *``
-    :func:`union_rows` ``* 2c`` f32, and one row of ``6h + 2c`` f32
-    parameter sums per (image, tile), summed here in a fixed order.
-    """
-    if q.device.type == "cpu":
-        return cluster_attention_backward_reference(
-            q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, g_out,
-            num_heads, cs, rel_width, clamp_width, saved=saved, drop=drop)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+def _check_saved(q, saved, h):
+    b, n, _ = q.shape
+    out, stats = saved
+    if (out.dtype != q.dtype or out.shape != q.shape
+            or out.device != q.device or not out.is_contiguous()):
+        raise ValueError("saved out must be q's dtype and shape, "
+                         "contiguous on q's device")
+    if (stats.dtype != torch.float32 or stats.shape != (b, n, 2 * h)
+            or stats.device != q.device or not stats.is_contiguous()):
+        raise ValueError(f"saved stats must be contiguous float32 "
+                         f"{(b, n, 2 * h)} on q's device")
+
+
+def _bwd_cpu(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
+             ucount, nidx, g_out, out, stats, num_heads, cs, rel_width,
+             clamp_width, drop_rate, drop_seed):
+    dq, dkv, *small = cluster_attention_backward_reference(
+        q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, g_out,
+        num_heads, cs, rel_width, clamp_width,
+        saved=None if out is None else (out, stats),
+        drop=_drop(drop_rate, drop_seed))
+    return (dq.contiguous(), dkv.contiguous(),
+            torch.cat([t.reshape(-1) for t in small]))
+
+
+def _bwd_cuda(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
+              ucount, nidx, g_out, out, stats, num_heads, cs, rel_width,
+              clamp_width, drop_rate, drop_seed):
     _check_cuda_args(q, kv, ncc, pos, num_heads)
     if g_out.dtype != q.dtype or g_out.shape != q.shape:
         raise ValueError(f"g_out must match q: {g_out.dtype} "
@@ -554,17 +605,11 @@ def cluster_attention_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
     b, n, c = q.shape
     h = num_heads
     c_ = c // h
+    saved = None if out is None else (out, stats)
     if saved is not None:
-        out, stats = saved
-        if (out.dtype != q.dtype or out.shape != q.shape
-                or out.device != q.device or not out.is_contiguous()):
-            raise ValueError("saved out must be q's dtype and shape, "
-                             "contiguous on q's device")
-        if (stats.dtype != torch.float32 or stats.shape != (b, n, 2 * h)
-                or stats.device != q.device or not stats.is_contiguous()):
-            raise ValueError(f"saved stats must be contiguous float32 "
-                             f"{(b, n, 2 * h)} on q's device")
-    meta, batched = _meta_args(meta, ncc)
+        _check_saved(q, saved, h)
+    drop = _drop(drop_rate, drop_seed)
+    meta, batched = _meta_args(_meta(ucl, ucount, nidx), ncc)
     params = _small_params(q, h, pe_kernel, pe_bias, blank_k, blank_v)
     nt = -(-n // TILE)
     ucap = union_rows(meta, cs)
@@ -596,56 +641,113 @@ def cluster_attention_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
     cluster_attention_backward.launches += 1
     cluster_attention_backward.saved_launches += saved is not None
     cluster_attention_backward.drop_launches += drop is not None
-    d_pe_kernel, d_pe_bias, d_blank_k, d_blank_v = torch.split(
-        rows.sum(0), [5 * h, h, c_ * h, h * c_])
-    return (dq, dkv,
-            d_pe_kernel.reshape(5, h).to(pe_kernel.dtype),
-            d_pe_bias.to(pe_bias.dtype),
-            d_blank_k.reshape(c_, h).to(blank_k.dtype),
-            d_blank_v.reshape(h, c_).to(blank_v.dtype))
+    return dq, dkv, rows.sum(0).to(pe_kernel.dtype)
+
+
+def _bwd_fake(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
+              ucount, nidx, g_out, out, stats, num_heads, cs, rel_width,
+              clamp_width, drop_rate, drop_seed):
+    return (q.new_empty(q.shape), kv.new_empty(kv.shape),
+            pe_kernel.new_empty((6 * num_heads + 2 * q.shape[2],)))
+
+
+def _fwd_setup(ctx, inputs, output):
+    (q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl, ucount,
+     nidx, num_heads, cs, rel_width, clamp_width, drop_rate, drop_seed,
+     want_stats) = inputs
+    ctx.args = (num_heads, cs, rel_width, clamp_width)
+    ctx.drop = _drop(drop_rate, drop_seed)
+    ctx.saved_mode = want_stats
+    ctx.mark_non_differentiable(output[1])
+    ctx.save_for_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
+                          blank_v, ucl, ucount, nidx,
+                          *(output if want_stats else ()))
+
+
+def _fwd_backward(ctx, g_out, _g_stats):
+    """With the statistics saved (the saved-stats mode) the backward takes
+    them and the forward's output; else it recomputes the softmax. The
+    forward and the backward share one tile metadata."""
+    s = ctx.saved_tensors
+    dq, dkv, dpk, dpb, dbk, dbv = cluster_attention_backward(
+        *s[:8], g_out.to(s[0].dtype).contiguous(), *ctx.args,
+        meta=_meta(*s[8:11]), saved=tuple(s[11:]) if ctx.saved_mode else None,
+        drop=ctx.drop)
+    return (dq, dkv, None, None, dpk, dpb, dbk, dbv) + (None,) * 10
+
+
+_LIB.impl("cluster_attention_fwd", _fwd_cpu, "CPU")
+_LIB.impl("cluster_attention_fwd", _fwd_cuda, "CUDA")
+_LIB.impl("cluster_attention_bwd", _bwd_cpu, "CPU")
+_LIB.impl("cluster_attention_bwd", _bwd_cuda, "CUDA")
+torch.library.register_fake("mlaff::cluster_attention_fwd", _fwd_fake,
+                            lib=_LIB)
+torch.library.register_fake("mlaff::cluster_attention_bwd", _bwd_fake,
+                            lib=_LIB)
+torch.library.register_autograd("mlaff::cluster_attention_fwd",
+                                _fwd_backward, setup_context=_fwd_setup,
+                                lib=_LIB)
+
+
+def cluster_attention_forward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
+                              blank_v, num_heads, cs, rel_width,
+                              clamp_width=0, meta=None, drop=None,
+                              want_stats=False):
+    """The forward, through the op ``mlaff::cluster_attention_fwd``: the
+    CUDA kernel on a CUDA tensor (counted in
+    ``fused_cluster_attention.launches``, and in its ``stats_launches``
+    and ``drop_launches`` where it writes the statistics or drops), the
+    plain version on the CPU. ``drop = (rate, seed)`` with a host integer
+    seed; ``want_stats``: also return the (b, n, 2h) f32 statistics of
+    :func:`cluster_attention_reference`. Differentiable (the op's autograd
+    formula), the statistics excepted."""
+    rate, seed = drop if drop is not None else (0.0, 0)
+    meta = meta if meta is not None else (None, None, None)
+    out, stats = torch.ops.mlaff.cluster_attention_fwd(
+        q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, *meta,
+        num_heads, cs, int(rel_width), int(clamp_width), float(rate),
+        int(seed), bool(want_stats))
+    return (out, stats) if want_stats else out
+
+
+def cluster_attention_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
+                               blank_v, g_out, num_heads, cs, rel_width,
+                               clamp_width=0, meta=None, saved=None,
+                               drop=None):
+    """Gradients of the fused attention with respect to ``q, kv, pe_kernel,
+    pe_bias, blank_k, blank_v``, each in its input's dtype, through the op
+    ``mlaff::cluster_attention_bwd``.
+
+    ``saved = (out, stats)``: the forward's output and statistics, the
+    saved-stats mode; None recomputes them. ``drop = (rate, seed)``:
+    the forward's dropout, replayed.
+
+    On a CUDA tensor this launches ``csrc/cluster_attention_bwd_saved.cu``
+    with ``saved``, ``csrc/cluster_attention_bwd.cu`` without (and
+    adds one to ``cluster_attention_backward.launches``, and to its
+    ``saved_launches`` and ``drop_launches`` in those modes), with
+    ``meta`` the :class:`TileMeta` of ``ncc`` (computed when None); on a
+    CPU tensor it runs :func:`cluster_attention_backward_reference`. The
+    CUDA path adds no float atomics: a repeated call gives the same bits.
+    Its scratch is the tiles' dk/dv partials, ``b * ceil(n / TILE) *``
+    :func:`union_rows` ``* 2c`` f32, and one row of ``6h + 2c`` f32
+    parameter sums per (image, tile), summed here in a fixed order.
+    """
+    rate, seed = drop if drop is not None else (0.0, 0)
+    meta = meta if meta is not None else (None, None, None)
+    out, stats = saved if saved is not None else (None, None)
+    dq, dkv, small = torch.ops.mlaff.cluster_attention_bwd(
+        q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, *meta, g_out,
+        out, stats, num_heads, cs, int(rel_width), int(clamp_width),
+        float(rate), int(seed))
+    params = (pe_kernel, pe_bias, blank_k, blank_v)
+    return (dq, dkv, *(d.view(p.shape).to(p.dtype) for d, p in zip(
+        torch.split(small, [p.numel() for p in params]), params)))
 
 
 cluster_attention_backward.launches = 0
 cluster_attention_backward.saved_launches = 0
 cluster_attention_backward.drop_launches = 0
-
-
-class _FusedClusterAttention(torch.autograd.Function):
-    """Forward and backward through the kernels (CUDA) or the plain
-    versions (CPU). With ``stats`` (autograd needs the backward and the
-    saved-stats mode is on) the forward also writes the softmax statistics
-    and saves them with its output, the very tensor it returns, and the
-    backward takes them; else the backward recomputes the softmax. On the
-    card the forward and the backward share one :class:`TileMeta`."""
-
-    @staticmethod
-    def forward(ctx, q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v,
-                num_heads, cs, rel_width, clamp_width, meta, drop, stats):
-        if q.device.type == "cuda":
-            meta = _meta_args(meta, ncc)[0]
-        ctx.args = (num_heads, cs, rel_width, clamp_width)
-        ctx.tiles = meta
-        ctx.drop = drop
-        ctx.saved_mode = stats
-        res = cluster_attention_forward(
-            q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, num_heads,
-            cs, rel_width, clamp_width, meta, drop, want_stats=stats)
-        out = res[0] if stats else res
-        ctx.save_for_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
-                              blank_v, *(res if stats else ()))
-        return out
-
-    @staticmethod
-    def backward(ctx, g_out):
-        saved = ctx.saved_tensors
-        q = saved[0]
-        g_out = g_out.to(q.dtype).contiguous()
-        dq, dkv, dpk, dpb, dbk, dbv = cluster_attention_backward(
-            *saved[:8], g_out, *ctx.args, meta=ctx.tiles,
-            saved=tuple(saved[8:]) if ctx.saved_mode else None,
-            drop=ctx.drop)
-        return (dq, dkv, None, None, dpk, dpb, dbk, dbv,
-                None, None, None, None, None, None, None)
 
 
 def fused_cluster_attention(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
@@ -688,15 +790,18 @@ def fused_cluster_attention(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
             raise ValueError("drop_rate > 0 requires drop_seed")
         _check_drop(q.shape[-1] // num_heads)
         drop = (float(drop_rate), int(drop_seed))
-    # the small parameters go to the accumulation type outside the Function,
-    # with differentiable casts, so their gradients reach the f32 params
+    if meta is None and q.device.type == "cuda":
+        meta = tile_metadata(ncc)  # one for the forward and the backward
+    # the small parameters go to the accumulation type outside the op, with
+    # differentiable casts, so their gradients reach the f32 params
     acc = torch.promote_types(q.dtype, torch.float32)
     small = [t.to(acc) for t in (pe_kernel, pe_bias, blank_k, blank_v)]
     stats = (torch.is_grad_enabled() and saved_mode()
              and any(t.requires_grad for t in (q, kv, *small)))
-    return _FusedClusterAttention.apply(
+    res = cluster_attention_forward(
         q, kv, ncc, pos, *small, num_heads, cs, rel_width, clamp_width, meta,
-        drop, stats)
+        drop, want_stats=stats)
+    return res[0] if stats else res
 
 
 fused_cluster_attention.launches = 0

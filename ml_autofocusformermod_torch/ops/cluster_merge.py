@@ -1,19 +1,19 @@
 """Fused PointConv cluster merge (counterpart of ``fused_cluster_merge`` in
 the JAX package's ``ops/merge_pallas.py``).
 
-:func:`fused_cluster_merge` is a ``torch.autograd.Function`` on both
-devices. Its forward launches the CUDA kernel ``csrc/cluster_merge.cu`` on a
-CUDA tensor and runs :func:`cluster_merge_reference`, the plain PyTorch
-version, on a CPU tensor; its backward (:func:`cluster_merge_backward`)
-launches ``csrc/cluster_merge_bwd.cu`` on a CUDA tensor and runs
-:func:`cluster_merge_backward_reference` on a CPU tensor. There is no
-fallback between the two. The backward kernel owns clusters, not centres:
-:func:`merge_inverse_index` (a counting-sort kernel on the card, its plain
-version :func:`merge_inverse_index_reference` on the CPU) lists, per
-cluster, the (centre, slot) pairs that name it, so every dw and dfeat
-entry is written once, without atomics, and the gradients are bitwise
-reproducible on the card. Without a gradient to take, the forward runs
-outside autograd.
+The forward, the backward and the backward's inverse index are dispatcher
+ops (``torch.ops.mlaff.cluster_merge_fwd``, ``..._bwd``,
+``...merge_inverse_index``), each with a fake kernel, the forward with an
+autograd formula. On a CUDA tensor the forward launches the CUDA kernel
+``csrc/cluster_merge.cu`` and the backward ``csrc/cluster_merge_bwd.cu``;
+on a CPU tensor they run :func:`cluster_merge_reference` and
+:func:`cluster_merge_backward_reference`, the plain PyTorch versions.
+There is no fallback between the two. The backward kernel owns clusters,
+not centres: :func:`merge_inverse_index` (a counting-sort kernel on the
+card, its plain version :func:`merge_inverse_index_reference` on the CPU)
+lists, per cluster, the (centre, slot) pairs that name it, so every dw and
+dfeat entry is written once, without atomics, and the gradients are
+bitwise reproducible on the card.
 """
 
 from __future__ import annotations
@@ -123,13 +123,17 @@ def _launch(lib, name, n_ptr, device, *args):
     return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
-def _merge_forward(weights, feat, ncc, cluster_size):
-    """The forward: the CUDA kernel on a CUDA tensor (counted in
-    ``fused_cluster_merge.launches``), the plain version on the CPU."""
-    if weights.device.type == "cpu":
-        return cluster_merge_reference(weights, feat, ncc, cluster_size)
-    if weights.device.type != "cuda":
-        raise ValueError(f"unsupported device {weights.device}")
+_LIB = torch.library.Library("mlaff", "FRAGMENT")
+_LIB.define("cluster_merge_fwd(Tensor weights, Tensor feat, Tensor ncc, "
+            "int cluster_size) -> Tensor")
+_LIB.define("cluster_merge_bwd(Tensor weights, Tensor feat, Tensor ncc, "
+            "int cluster_size, Tensor g) -> (Tensor dw, Tensor dfeat)")
+_LIB.define("merge_inverse_index(Tensor ncc, int n, int cluster_size) -> "
+            "(Tensor entry, Tensor offset)")
+
+
+def _fwd_cuda(weights, feat, ncc, cluster_size):
+    """The forward kernel, counted in ``fused_cluster_merge.launches``."""
     _check_cuda_args(weights, feat, ncc, cluster_size)
     weights, feat = _aligned(weights), _aligned(feat)
     b, n_, m, ic = weights.shape
@@ -145,6 +149,11 @@ def _merge_forward(weights, feat, ncc, cluster_size):
         raise RuntimeError(f"cluster_merge_fwd launch failed: CUDA error {rc}")
     fused_cluster_merge.launches += 1
     return out
+
+
+def _fwd_fake(weights, feat, ncc, cluster_size):
+    b, n_, _, ic = weights.shape
+    return weights.new_empty((b, n_, ic, feat.shape[2]))
 
 
 class MergeIndex(NamedTuple):
@@ -176,27 +185,16 @@ def merge_inverse_index_reference(ncc, n, cluster_size):
     return MergeIndex(entry, offset.to(torch.int32))
 
 
-def merge_inverse_index(ncc, n, cluster_size):
-    """:class:`MergeIndex` of the (b, n', nnc) int32 cluster indices ``ncc``
-    (each in ``[0, k)``, ``k = ceil(n / cluster_size)``), on ``ncc``'s
-    device. Counted in ``merge_inverse_index.calls``. On a CUDA tensor one
-    launch of the counting sort in ``csrc/cluster_merge_bwd.cu`` (counted
-    in ``merge_inverse_index.launches``); on a CPU tensor
-    :func:`merge_inverse_index_reference`."""
-    merge_inverse_index.calls += 1
-    if ncc.device.type == "cpu":
-        return merge_inverse_index_reference(ncc, n, cluster_size)
-    if ncc.device.type != "cuda":
-        raise ValueError(f"unsupported device {ncc.device}")
+def _index_cuda(ncc, n, cluster_size):
+    """The counting-sort kernel, counted in
+    ``merge_inverse_index.launches``."""
     if ncc.dtype != torch.int32 or not ncc.is_contiguous():
         raise TypeError("ncc must be contiguous int32")
     b, n_, nnc = ncc.shape
     k = -(-n // cluster_size)
-    lists = -(-b * n_ * nnc // 4) * 4  # the offsets start 16-byte aligned
-    buf = torch.empty(lists + b * (k + 1), dtype=torch.int32,
-                      device=ncc.device)
-    entry = buf[:b * n_ * nnc].view(b, n_ * nnc)
-    offset = buf[lists:].view(b, k + 1)
+    # separate allocations, each 16-byte aligned as the kernel reads them
+    entry = torch.empty((b, n_ * nnc), dtype=torch.int32, device=ncc.device)
+    offset = torch.empty((b, k + 1), dtype=torch.int32, device=ncc.device)
     rc = _launch("cluster_merge_bwd", "merge_inverse_index", 3, ncc.device,
                  ncc.data_ptr(), entry.data_ptr(), offset.data_ptr(), b,
                  n_ * nnc, k)
@@ -204,28 +202,47 @@ def merge_inverse_index(ncc, n, cluster_size):
         raise RuntimeError(f"merge_inverse_index launch failed: CUDA error "
                            f"{rc}")
     merge_inverse_index.launches += 1
-    return MergeIndex(entry, offset)
+    return entry, offset
+
+
+def _index_fake(ncc, n, cluster_size):
+    b, n_, nnc = ncc.shape
+    k = -(-n // cluster_size)
+    return (ncc.new_empty((b, n_ * nnc), dtype=torch.int32),
+            ncc.new_empty((b, k + 1), dtype=torch.int32))
+
+
+def merge_inverse_index(ncc, n, cluster_size):
+    """:class:`MergeIndex` of the (b, n', nnc) int32 cluster indices ``ncc``
+    (each in ``[0, k)``, ``k = ceil(n / cluster_size)``), on ``ncc``'s
+    device, through the op ``mlaff::merge_inverse_index``. Counted in
+    ``merge_inverse_index.calls``. On a CUDA tensor one launch of the
+    counting sort in ``csrc/cluster_merge_bwd.cu`` (counted in
+    ``merge_inverse_index.launches``); on a CPU tensor
+    :func:`merge_inverse_index_reference`."""
+    merge_inverse_index.calls += 1
+    return MergeIndex(*torch.ops.mlaff.merge_inverse_index(
+        ncc, n, cluster_size))
 
 
 merge_inverse_index.calls = 0
 merge_inverse_index.launches = 0
 
 
-def cluster_merge_backward(weights, feat, ncc, cluster_size, g):
-    """``(dw, dfeat)`` of the merge for the output gradient ``g``
-    ``(b, n', ic, c)``: dw in the weights' dtype, dfeat summed in f32 and
-    returned in feat's dtype.
+def _fwd_cpu(weights, feat, ncc, cluster_size):
+    return cluster_merge_reference(weights, feat, ncc,
+                                   cluster_size).contiguous()
 
-    On a CUDA tensor this makes the :func:`merge_inverse_index` of ``ncc``
-    and launches ``csrc/cluster_merge_bwd.cu`` on it (adding one to
-    ``cluster_merge_backward.launches``); on a CPU tensor it runs
-    :func:`cluster_merge_backward_reference`.
-    """
-    if weights.device.type == "cpu":
-        return cluster_merge_backward_reference(weights, feat, ncc,
-                                                cluster_size, g)
-    if weights.device.type != "cuda":
-        raise ValueError(f"unsupported device {weights.device}")
+
+def _bwd_cpu(weights, feat, ncc, cluster_size, g):
+    # dfeat is a slice of the padded rows: contiguous, as the fake says
+    return tuple(t.contiguous() for t in cluster_merge_backward_reference(
+        weights, feat, ncc, cluster_size, g))
+
+
+def _bwd_cuda(weights, feat, ncc, cluster_size, g):
+    """The backward kernel on the :func:`merge_inverse_index` of ``ncc``,
+    counted in ``cluster_merge_backward.launches``."""
     _check_cuda_args(weights, feat, ncc, cluster_size)
     b, n_, m, ic = weights.shape
     n, c = feat.shape[1], feat.shape[2]
@@ -250,31 +267,59 @@ def cluster_merge_backward(weights, feat, ncc, cluster_size, g):
     return dw, dfeat
 
 
+def _bwd_fake(weights, feat, ncc, cluster_size, g):
+    return weights.new_empty(weights.shape), feat.new_empty(feat.shape)
+
+
+def cluster_merge_backward(weights, feat, ncc, cluster_size, g):
+    """``(dw, dfeat)`` of the merge for the output gradient ``g``
+    ``(b, n', ic, c)``: dw in the weights' dtype, dfeat summed in f32 and
+    returned in feat's dtype, through the op ``mlaff::cluster_merge_bwd``.
+
+    On a CUDA tensor this makes the :func:`merge_inverse_index` of ``ncc``
+    and launches ``csrc/cluster_merge_bwd.cu`` on it (adding one to
+    ``cluster_merge_backward.launches``); on a CPU tensor it runs
+    :func:`cluster_merge_backward_reference`.
+    """
+    return torch.ops.mlaff.cluster_merge_bwd(weights, feat, ncc,
+                                             cluster_size, g)
+
+
 cluster_merge_backward.launches = 0
 
 
-class _FusedClusterMerge(torch.autograd.Function):
-    """Forward and backward through the kernels (CUDA) or the plain
-    versions (CPU)."""
+def _fwd_setup(ctx, inputs, output):
+    weights, feat, ncc, cluster_size = inputs
+    ctx.cluster_size = cluster_size
+    ctx.save_for_backward(weights, feat, ncc)
 
-    @staticmethod
-    def forward(ctx, weights, feat, ncc, cluster_size):
-        ctx.cluster_size = cluster_size
-        ctx.save_for_backward(weights, feat, ncc)
-        return _merge_forward(weights, feat, ncc, cluster_size)
 
-    @staticmethod
-    def backward(ctx, g):
-        weights, feat, ncc = ctx.saved_tensors
-        g = g.to(weights.dtype).contiguous()
-        dw, dfeat = cluster_merge_backward(weights, feat, ncc,
-                                           ctx.cluster_size, g)
-        return dw, dfeat, None, None
+def _fwd_backward(ctx, g):
+    weights, feat, ncc = ctx.saved_tensors
+    dw, dfeat = cluster_merge_backward(weights, feat, ncc, ctx.cluster_size,
+                                       g.to(weights.dtype).contiguous())
+    return dw, dfeat, None, None
+
+
+_LIB.impl("cluster_merge_fwd", _fwd_cpu, "CPU")
+_LIB.impl("cluster_merge_fwd", _fwd_cuda, "CUDA")
+_LIB.impl("cluster_merge_bwd", _bwd_cpu, "CPU")
+_LIB.impl("cluster_merge_bwd", _bwd_cuda, "CUDA")
+_LIB.impl("merge_inverse_index", merge_inverse_index_reference, "CPU")
+_LIB.impl("merge_inverse_index", _index_cuda, "CUDA")
+for _name, _fake in (("cluster_merge_fwd", _fwd_fake),
+                     ("cluster_merge_bwd", _bwd_fake),
+                     ("merge_inverse_index", _index_fake)):
+    torch.library.register_fake(f"mlaff::{_name}", _fake, lib=_LIB)
+torch.library.register_autograd("mlaff::cluster_merge_fwd", _fwd_backward,
+                                setup_context=_fwd_setup, lib=_LIB)
 
 
 def fused_cluster_merge(weights, feat, ncc, cluster_size):
     """PointConv merge over cluster neighbourhoods, differentiable in
-    ``weights`` and ``feat``.
+    ``weights`` and ``feat``, through the op ``mlaff::cluster_merge_fwd``:
+    the CUDA kernel on a CUDA tensor (counted in
+    ``fused_cluster_merge.launches``), the plain version on the CPU.
 
     Args:
         weights: ``(b, n', m, ic)`` pointconv weights, ``m = nnc * cs``
@@ -287,10 +332,8 @@ def fused_cluster_merge(weights, feat, ncc, cluster_size):
         ``(b, n', ic, c)`` in weights' dtype; rows of the padded last
         cluster contribute zero; accumulation in f32.
     """
-    if not (torch.is_grad_enabled()
-            and (weights.requires_grad or feat.requires_grad)):
-        return _merge_forward(weights, feat, ncc, cluster_size)
-    return _FusedClusterMerge.apply(weights, feat, ncc, cluster_size)
+    return torch.ops.mlaff.cluster_merge_fwd(weights, feat, ncc,
+                                             cluster_size)
 
 
 fused_cluster_merge.launches = 0

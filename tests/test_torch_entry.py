@@ -5,7 +5,9 @@
   port's config loader;
 * importing the whole port (and ``chip_smoke.py``) loads no ``jax*`` and no
   ``ml_autofocusformermod_tpu*`` module;
-* entry points refuse CUDA when there is no GPU instead of running on CPU.
+* entry points refuse CUDA when there is no GPU instead of running on CPU;
+* the JAX package's settings the port cannot honour on one card (the mesh
+  keys, ZeRO-1, ``TPU.USE_PALLAS: false`` on the card) raise.
 """
 
 import math
@@ -20,7 +22,7 @@ import yaml
 from ml_autofocusformermod_torch import main as port_main
 from ml_autofocusformermod_torch import resolve_device
 from ml_autofocusformermod_torch.config import load_config
-from ml_autofocusformermod_torch.models.build import build_model
+from ml_autofocusformermod_torch.models.build import build_model, check_switches
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -130,3 +132,36 @@ def test_unknown_model_type_raises():
                     opts=["MODEL.TYPE", "nosuchmodel"])
     with pytest.raises(NotImplementedError, match="nosuchmodel"):
         build_model(c, device="cpu")
+
+
+@pytest.mark.parametrize("opts", [["TPU.MESH_MODEL", "2"],
+                                  ["TPU.MESH_SEQ", "4"],
+                                  ["TPU.ZERO1", "True"],
+                                  ["TPU.MESH_DATA", "8"]])
+def test_switches_the_port_cannot_honour_raise(tmp_path, opts):
+    """The mesh keys and ZeRO-1 raise in ``build_model`` and in ``main``,
+    naming ROADMAP A11, instead of being ignored."""
+    c = load_config(os.path.join(PORT_CFG, "aff_mini.yaml"),
+                    opts=TINY_OPTS + opts)
+    with pytest.raises(ValueError, match="ROADMAP A11"):
+        build_model(c, device="cpu")
+    with pytest.raises(ValueError, match="ROADMAP A11"):
+        port_main.main(["--cfg", os.path.join(PORT_CFG, "aff_mini.yaml"),
+                        "--throughput", "--device", "cpu",
+                        "--data-path", str(tmp_path / "no_dataset"),
+                        "--opts", *TINY_OPTS, *opts])
+
+
+def test_use_pallas_false_raises_on_the_card_only():
+    """``TPU.USE_PALLAS: false`` has no route on the card; on the CPU the
+    port runs its plain versions anyway. ``TPU.MESH_DATA`` 1 and -1 (one
+    device) pass."""
+    c = load_config(os.path.join(PORT_CFG, "aff_mini.yaml"),
+                    opts=TINY_OPTS + ["TPU.USE_PALLAS", "False"])
+    with pytest.raises(ValueError, match="USE_PALLAS"):
+        check_switches(c, "cuda")
+    check_switches(c, "cpu")
+    assert build_model(c, device="cpu").head.out_features == 10
+    for mesh in ("1", "-1"):
+        check_switches(load_config(os.path.join(PORT_CFG, "aff_mini.yaml"),
+                                   opts=["TPU.MESH_DATA", mesh]), "cuda")

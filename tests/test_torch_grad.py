@@ -364,12 +364,16 @@ def test_fused_ops_carry_gradients_to_their_parameters():
 def test_attention_function_is_on_the_autograd_path():
     a = _f64_attention_inputs()
     out = fused_cluster_attention(*(a[k] for k in ATTN_ARGS), 2, 4, 5)
-    assert type(out.grad_fn).__name__ == "_FusedClusterAttentionBackward"
+    # the autograd formulas of the ops mlaff::cluster_attention_fwd and
+    # mlaff::cluster_merge_fwd
+    assert type(out.grad_fn).__name__ == (
+        "GeneratedBackwardFor_mlaff_cluster_attention_fwd_defaultBackward")
     w = torch.ones(1, 1, 8, 4, requires_grad=True)
     f = torch.ones(1, 4, 3)
     ncc = torch.zeros(1, 1, 2, dtype=torch.int32)
     merged = fused_cluster_merge(w, f, ncc, 4)
-    assert type(merged.grad_fn).__name__ == "_FusedClusterMergeBackward"
+    assert type(merged.grad_fn).__name__ == (
+        "GeneratedBackwardFor_mlaff_cluster_merge_fwd_defaultBackward")
 
 
 def test_batchnorm_train_matches_flax_biased_running_var():

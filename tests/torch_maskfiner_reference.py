@@ -10,7 +10,7 @@ training-mode loss and gradient of such a model (a name of ``TRAIN``:
 ``jax.value_and_grad`` with the "upsample" and "dropout" rng streams and
 mutable batch statistics, as the JAX ``train/trainer.py`` takes it; a
 name of ``TRAIN_DROP`` the same with attention dropout inside the fused
-kernels), and writes the weights, inputs, upsampling masks and outputs to
+kernels, of ``TRAIN_REMAT`` with ``TPU.REMAT``), and writes the weights, inputs, upsampling masks and outputs to
 one ``.npz`` (keys ``case/params/...``, ``case/batch_stats/...``,
 ``case/in/...``, ``case/mask/j``, ``case/out/...``, ``case/grad/...``,
 ``case/new_stats/...``, and for ``TRAIN_DROP`` ``case/seeds``).
@@ -82,6 +82,14 @@ TRAIN_DROP = {
         "MODEL.MR.EMBED_DIM": [32, 24, 16, 16, 16, 24, 32],
         "MODEL.MR.ATTN_DROP_RATE": [0.0, 0.0, 0.25, 0.25, 0.25, 0.0, 0.0],
     }, None),
+}
+# training cases with the blocks recomputed in the backward (TPU.REMAT),
+# at ratio 1.0 (every token splits), drop rates 0
+TRAIN_REMAT = {
+    f"ud_train_remat_{mode}": ("maskfiner_up_down_mini.yaml",
+                               {"TPU.REMAT": mode},
+                               [0.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0])
+    for mode in ("blocks", "dots")
 }
 LABELS = np.array([3, 7])
 # a first-layer level in training mode: its patch embedding's BatchNorm
@@ -244,7 +252,7 @@ def run_train(out, name):
     )
 
     drop = name in TRAIN_DROP
-    preset, opts, ratios = (TRAIN_DROP if drop else TRAIN)[name]
+    preset, opts, ratios = {**TRAIN, **TRAIN_REMAT, **TRAIN_DROP}[name]
     rng = np.random.default_rng(6)
     if drop:
         model = _build_pallas_route(tiny_mr(preset, **opts), ratios)
@@ -332,7 +340,8 @@ def main():
     out = {}
     for case in cases:
         run = (run_model if case in MODELS else
-               run_train if case in TRAIN or case in TRAIN_DROP else
+               run_train if case in {**TRAIN, **TRAIN_REMAT, **TRAIN_DROP}
+               else
                run_first_level_train if case == FIRST_TRAIN else run_level)
         run(out, case)
     np.savez(path, **out)
