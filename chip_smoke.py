@@ -174,7 +174,26 @@ Phases, one JSON line each:
    and 1.08 G ptflops MACs); profile runs ``main --profile`` on AFF-Mini
    with a 2-step window: 2 step spans, and each fused kernel by its CUDA
    name as often as its counter counts over 2 steps;
-13. stop_processes, also when a phase fails: the loaders' worker server
+13. data and tensor parallelism with ZeRO-1, two processes sharing the
+   one card (gloo, which carries CUDA tensors through the host; NCCL takes
+   one rank per card): kernel_check / kernel_time rows ``attention_tp2_*``
+   hold the attention forward (with statistics) and the saved backward at
+   AFF-Mini's tensor-parallel shapes (model size 2: h = 1 / 2 / 4 heads of
+   c = 16 / 64 / 128 channels, b = 128 bf16) against their plain
+   versions; parallel_check runs two train steps of AFF-Mini and of
+   UD-Mini 224 (ratio 1.0), fp32, b = 2 per rank, at data 2, data 2 +
+   ZeRO-1 and model 2 against the one-process steps of the global batch
+   on the same card (loss and grad_norm within 1e-4 relative, every
+   gradient and parameter within 1e-3 of its tensor's largest entry), each
+   rank's launches; parallel_train runs ``main`` on two ranks (``--device
+   cuda:0 --dist-backend gloo``) for AFF-Mini and UD-Mini at b = 64 per
+   rank, bf16, two epochs of two steps, with and without ``TPU.ZERO1``:
+   img/s per rank and summed, peak memory per rank, ms per step in
+   collectives (they say nothing of scaling), then a world of one under
+   torchrun's environment with NCCL; parallel_ckpt evaluates the two-rank
+   ZeRO-1 checkpoint in one process (``--eval --resume``), whose val loss
+   must match the run's;
+14. stop_processes, also when a phase fails: the loaders' worker server
    and its resource tracker are stopped and waited for, and the script
    fails if a child process of its own is still running.
 
@@ -187,8 +206,11 @@ throughput run and in each MaskFiner training run too (``..._train``: as
 the preset configures it; ``..._train_attn_drop``: with attention
 dropout) and in the two runs on the folder
 (``..._imagefolder_train``), in the remat runs (``..._remat_blocks``,
-``_remat_dots``), the exported programs' calls (``..._export``) and the
-profiled run (``aff_mini_profile``), and for the attention kernels their
+``_remat_dots``), the exported programs' calls (``..._export``), the
+profiled run (``aff_mini_profile``), each rank of the parallel runs
+(``<model>_<layout>_rank<r>``, ``<model>_parallel_train[_zero1]_rank<r>``,
+counted inside each rank's process) and the NCCL run
+(``aff_mini_nccl_world1``), and for the attention kernels their
 times at the UD-Mini shapes (``maskfiner_ud_mini``: the forward at eval;
 ``maskfiner_ud_mini_train_r1`` / ``_final``: forward and backward per
 training step).
@@ -2694,8 +2716,449 @@ def phase_profile(torch, smi):
     return launches
 
 
+# --------------------------------- data and tensor parallelism, ZeRO-1 ----
+
+# (name, data, model, ZeRO-1) of the two-rank layouts on the one card
+PARALLEL_LAYOUTS = (("dp2", 2, 1, False), ("dp2_zero1", 2, 1, True),
+                    ("tp2", 1, 2, False))
+PARALLEL_MODELS = {"aff_mini": "aff_mini.yaml",
+                   "maskfiner_ud_mini": "maskfiner_up_down_mini.yaml"}
+
+PARALLEL_RANK = r"""
+import json, os, sys
+import torch
+import chip_smoke as cs
+from ml_autofocusformermod_torch.ckpt import io as ckpt_io
+from ml_autofocusformermod_torch.models.build import build_model
+from ml_autofocusformermod_torch.parallel import mesh as mesh_lib
+from ml_autofocusformermod_torch.parallel.zero import make_layout
+from ml_autofocusformermod_torch.time_kernels import RATIO_ONE
+from ml_autofocusformermod_torch.train.trainer import (
+    create_train_state, make_train_step)
+spec = json.loads(sys.argv[1])
+torch.backends.cudnn.allow_tf32 = False  # the convs, as in train_check
+torch.cuda.set_device(0)
+rank, world, _ = mesh_lib.init_distributed("cuda:0", "gloo", spec["init"])
+x, y = torch.load(spec["batch"])
+try:
+    for name, preset, data, model_size, zero1 in spec["cases"]:
+        cfg = cs.port_config(preset, ["TPU.COMPUTE_DTYPE", "float32"])
+        mesh = mesh_lib.make_mesh(data, model_size)
+        model = build_model(cfg, "cuda:0", seed=0,
+                            upscale_ratios=RATIO_ONE.get(preset))
+        layout = make_layout(model, mesh, zero1)
+        state, schedule = create_train_state(cfg, model, 10, layout=layout)
+        step = make_train_step(cfg, state, schedule)
+        b = x.shape[0] // mesh.data
+        rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+        xs, ys = x[rows].cuda(), y[rows].cuda()
+        cs.zero_counters()
+        metrics = [step(xs, ys) for _ in range(2)]
+        torch.cuda.synchronize()
+        launches = cs.read_counters()
+        full = {k: tuple(ckpt_io.full_tensor(k, t, layout, False).float()
+                         .cpu() for t in (p.grad, p.detach()))
+                for k, p in model.named_parameters()}
+        moments = sum(t.numel() * t.element_size() for m in ("mu", "nu")
+                      for t in state.optimizer.state[m].values())
+        if rank == 0:
+            torch.save(full, os.path.join(spec["out"], name + ".pt"))
+        print(json.dumps({"rank": rank, "case": name, "launches": launches,
+                          "loss": [m["loss"].item() for m in metrics],
+                          "grad_norm": [m["grad_norm"].item()
+                                        for m in metrics],
+                          "moment_bytes": moments}), flush=True)
+finally:
+    mesh_lib.destroy()
+"""
+
+
+def run_ranks(code_or_argv, world, env_extra=None, timeout=900):
+    """Start ``world`` ranks (``python -c code`` with its arguments, or an
+    argv) with torchrun's environment, all on the one card, and wait for
+    them; each rank's stdout. A rank that fails fails the phase."""
+    import os
+
+    argv = ([sys.executable, "-c", *code_or_argv]
+            if isinstance(code_or_argv, tuple) else code_or_argv)
+    procs = [subprocess.Popen(
+        argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "RANK": str(r), "WORLD_SIZE": str(world),
+             "LOCAL_RANK": "0", **(env_extra or {})}) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            raise AssertionError(f"rank {r} exit {p.returncode}:\n"
+                                 f"{out[-6000:]}")
+    return outs
+
+
+def json_lines(text):
+    return [json.loads(ln) for ln in text.splitlines()
+            if ln.startswith("{")]
+
+
+def phase_parallel_kernels(torch):
+    """The attention kernels at AFF-Mini's tensor-parallel shapes (model
+    size 2: each rank's h/2 heads and c/2 channels, stages 1-3, b = 128
+    bf16): the forward, with statistics, and the saved backward against
+    their plain versions (the limits of kernel_check, the backward against
+    the plain backward in f64 and the exact gradient), with times. Returns
+    the rows by kernel."""
+    from ml_autofocusformermod_torch.ops.cluster_attention import (
+        cluster_attention_backward, cluster_attention_backward_reference,
+        cluster_attention_forward, cluster_attention_reference,
+        tile_metadata,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(21)
+    R = 224 // 4 - 1
+    rows = {"cluster_attention_fwd": [], "cluster_attention_bwd": []}
+    for label, n, h, c, per in ATTN_STAGES:
+        h, c = h // 2, c // 2
+        a = attention_inputs(gen, 128, n, h, c, dev, torch.bfloat16)
+        g = torch.randn(128, n, c, generator=gen).to(dev, torch.bfloat16)
+        args = [a[k] for k in ATTN_ARGS]
+        meta = tile_metadata(a["ncc"])
+        geo = (h, CS, R, 0)
+        tag = f"attention_tp2_{label}_b128"
+        saved, _, err_f = check_modes_fwd(torch, tag, "bfloat16", args, geo,
+                                          meta)
+        err_b = check_modes_bwd(torch, tag, "bfloat16", args, g, geo, saved,
+                                None, meta)
+        base = dict(shape=label + "_tp2", b=128, n=n, heads=h, c=c,
+                    per_pass=per)
+        moved, flops = attn_work(torch, a, h, CS)
+        rows["cluster_attention_fwd"].append(timed_row(
+            torch, base,
+            lambda: cluster_attention_forward(*args, *geo, meta=meta,
+                                              want_stats=True),
+            lambda: cluster_attention_reference(*args, *geo,
+                                                want_stats=True),
+            (moved + 128 * n * 2 * h * 4, flops), err_f, mode="stats"))
+        moved, flops = attn_bwd_work(torch, a, g, h, CS)
+        rows["cluster_attention_bwd"].append(timed_row(
+            torch, base,
+            lambda: cluster_attention_backward(*args, g, *geo, meta=meta,
+                                               saved=saved),
+            lambda: cluster_attention_backward_reference(*args, g, *geo,
+                                                         saved=saved),
+            (moved + nbytes(*saved), flops), err_b, mode="saved"))
+        for kernel, rs in rows.items():
+            emit({"phase": "kernel_time", "kernel": kernel, "tp": 2,
+                  **rs[-1]})
+    return rows
+
+
+def phase_parallel_check(torch, smi):
+    """Two ranks on the one card through gloo (``PARALLEL_RANK``): AFF-Mini
+    and UD-Mini 224 (ratio 1.0) fp32, b = 2 per rank, two train steps at
+    data 2, data 2 + ZeRO-1 and model 2, against the one-process steps of
+    the global batch (b = 4) on the same card from the same weights: loss
+    and grad_norm within 1e-4 relative, every gradient (of the second
+    step) and parameter within 1e-3 of its tensor's largest entry (floored
+    at 1e-5 of the gradient norm, as train_check). A gradient below that
+    floor in the one-process step is zero in exact arithmetic and round-off
+    in both runs: it is held within the floor, and its parameter within
+    AdamW's largest move over the two steps (twice the sum of the learning
+    rates). Each rank's launches: every kernel of the model's path
+    launched. Returns the launches by run (``<model>_<layout>_rank<r>``)."""
+    import os
+    import shutil
+    import tempfile
+
+    from ml_autofocusformermod_torch.models.build import build_model
+    from ml_autofocusformermod_torch.train.trainer import (
+        create_train_state, make_train_step,
+    )
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    by_run = {}
+    try:
+        gen = torch.Generator().manual_seed(5)
+        x = torch.randn(4, 3, 224, 224, generator=gen)
+        y = torch.tensor([3, 977, 10, 500])
+        torch.save((x, y), os.path.join(tmp, "batch.pt"))
+        cases = [(f"{m}_{lay}", preset, d, mo, z)
+                 for m, preset in PARALLEL_MODELS.items()
+                 for lay, d, mo, z in PARALLEL_LAYOUTS]
+        spec = {"init": f"tcp://localhost:{free_ports(1)[0]}",
+                "cases": cases,
+                "batch": os.path.join(tmp, "batch.pt"), "out": tmp}
+        t0 = time.perf_counter()
+        outs = run_ranks((PARALLEL_RANK, json.dumps(spec)), 2)
+        ranks_s = time.perf_counter() - t0
+        lines = {(ln["case"], ln["rank"]): ln
+                 for out in outs for ln in json_lines(out)}
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            for model_name, preset in PARALLEL_MODELS.items():
+                cfg = port_config(preset, ["TPU.COMPUTE_DTYPE", "float32"])
+                model = build_model(cfg, "cuda", seed=0,
+                                    upscale_ratios=RATIO_ONE.get(preset))
+                state, schedule = create_train_state(cfg, model, 10)
+                step = make_train_step(cfg, state, schedule)
+                ref = [step(x.cuda(), y.cuda()) for _ in range(2)]
+                ref_loss = [m["loss"].item() for m in ref]
+                ref_gn = [m["grad_norm"].item() for m in ref]
+                floor = 1e-5 * ref_gn[-1]
+                ref_full = {k: (p.grad.float().cpu(),
+                                p.detach().float().cpu())
+                            for k, p in model.named_parameters()}
+                # gradients below the floor are zero in exact arithmetic
+                # (a conv bias ahead of a batch-statistics BatchNorm): their
+                # values are the summation order's round-off, and AdamW's
+                # normalised step turns that into moves of up to lr
+                noise = sorted(k for k, (g, _) in ref_full.items()
+                               if g.abs().max().item() < floor)
+                step_bound = 2 * sum(m["lr"] for m in ref)
+                for lay, data, model_size, zero1 in PARALLEL_LAYOUTS:
+                    name = f"{model_name}_{lay}"
+                    full = torch.load(os.path.join(tmp, name + ".pt"))
+                    worst = {"grad": (0.0, ""), "param": (0.0, "")}
+                    noise_ok = True
+                    for k, (g, p) in ref_full.items():
+                        if k in noise:
+                            noise_ok &= (
+                                (full[k][0] - g).abs().max().item() <= floor
+                                and (full[k][1] - p).abs().max().item()
+                                <= step_bound)
+                            continue
+                        for part, a, b in (("grad", full[k][0], g),
+                                           ("param", full[k][1], p)):
+                            err = ((a - b).abs().max().item()
+                                   / max(b.abs().max().item(), floor))
+                            worst[part] = max(worst[part], (err, k))
+                    per_rank = [lines[(name, r)] for r in (0, 1)]
+                    path = [k for k, v in expect_path(
+                        "aff_mini" if model_name == "aff_mini"
+                        else "maskfiner_ud_mini", 0, 1).items() if v]
+                    launched = all(r["launches"][k] > 0 for r in per_rank
+                                   for k in path)
+                    ok = (launched and noise_ok
+                          and all(abs(a - b) <= 1e-4 * abs(b)
+                                  for r in per_rank
+                                  for a, b in zip(r["loss"], ref_loss))
+                          and all(abs(a - b) <= 1e-4 * abs(b)
+                                  for r in per_rank
+                                  for a, b in zip(r["grad_norm"], ref_gn))
+                          and worst["grad"][0] <= 1e-3
+                          and worst["param"][0] <= 1e-3)
+                    emit({"phase": "parallel_check", "model": model_name,
+                          "layout": lay, "data": data, "model_axis":
+                          model_size, "zero1": zero1, "dtype": "float32",
+                          "b_per_rank": 4 // data, "backend": "gloo",
+                          "loss": per_rank[0]["loss"], "loss_one": ref_loss,
+                          "grad_norm": per_rank[0]["grad_norm"],
+                          "grad_norm_one": ref_gn,
+                          "worst_grad_rel_err": worst["grad"],
+                          "worst_param_rel_err": worst["param"],
+                          "grads_at_floor": noise,
+                          "grads_at_floor_ok": noise_ok,
+                          "moment_bytes_per_rank": [
+                              r["moment_bytes"] for r in per_rank],
+                          "launches_per_rank": [r["launches"]
+                                                for r in per_rank],
+                          "card": smi, "ok": ok})
+                    if not ok:
+                        raise AssertionError(f"parallel_check {name}")
+                    for r in (0, 1):
+                        by_run[f"{name}_rank{r}"] = per_rank[r]["launches"]
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        emit({"phase": "parallel_check_ranks", "seconds": ranks_s})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return by_run
+
+
+PARALLEL_MAIN = r"""
+import gc, json, sys
+import torch
+import chip_smoke as cs
+from ml_autofocusformermod_torch import main as port_main
+for argv in json.loads(sys.argv[1]):
+    gc.collect()  # the last run's state, so that its memory is free
+    cs.zero_counters()
+    result = port_main.main(argv)
+    torch.cuda.synchronize()
+    print(json.dumps({"launches": cs.read_counters(), "run": result}),
+          flush=True)
+"""
+
+
+def free_ports(n: int) -> list:
+    """``n`` distinct free ports on localhost."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("localhost", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def main_runs(outs):
+    """The ``PARALLEL_MAIN`` lines of each rank's output, in run order."""
+    return [[d for d in json_lines(o) if "run" in d] for o in outs]
+
+
+def phase_parallel_train(torch, smi):
+    """``main`` on two ranks sharing the one card (gloo, ``--device
+    cuda:0``), the runs one after another in the same two processes:
+    AFF-Mini and UD-Mini 224, b = 64 per rank, bf16, two synthetic epochs
+    of two steps, with and without ``TPU.ZERO1``, the collectives timed
+    (``MLAFF_COMM_TIMING=1``). Per run the img/s after the first step per
+    rank and summed, peak memory per rank and the ms per step in
+    collectives: gloo through the host on one shared card, which says
+    nothing of scaling. Then a world of one under torchrun's environment
+    with NCCL (``env://``), AFF-Mini, one epoch: the launch path of a
+    multi-card host. Returns the launches by run and the AFF-Mini ZeRO-1
+    run's output directory, checkpoint and val loss (the directory is the
+    caller's to remove)."""
+    import os
+    import shutil
+    import tempfile
+
+    runs = list(itertools.product(PARALLEL_MODELS.items(), (False, True)))
+    outs = [tempfile.mkdtemp(prefix="chip_smoke_parallel_train_")
+            for _ in runs]
+    argvs = [["--cfg", preset_path(preset), "--device", "cuda:0",
+              "--dist-backend", "gloo", "--dist-url",
+              f"tcp://localhost:{port}", "--data-path", "no_dataset",
+              "--batch-size", "64", "--epochs", "2", "--output", out,
+              "--opts", "TPU.ZERO1", str(zero1)]
+             for ((_, preset), zero1), out, port in zip(
+                 runs, outs, free_ports(len(runs)))]
+    t0 = time.perf_counter()
+    per_rank = main_runs(run_ranks((PARALLEL_MAIN, json.dumps(argvs)), 2,
+                                   {"MLAFF_COMM_TIMING": "1"}))
+    secs = time.perf_counter() - t0
+    by_run, kept = {}, None
+    for i, ((model_name, _), zero1) in enumerate(runs):
+        ranks = [lines[i] for lines in per_rank]
+        trains = [r["run"]["train"] for r in ranks]
+        steps = [sum(e["steps"] for e in t["epochs"]) for t in trains]
+        want = expect_path(model_name, 50 + 30 + 2 * 2, 4)
+        ok = (steps == [4, 4] and all(r["launches"] == want for r in ranks)
+              and all(t["skipped_steps"] == 0 for t in trains)
+              and trains[0]["train_loss"] == trains[1]["train_loss"]
+              and trains[0]["val_loss"] == trains[1]["val_loss"]
+              and all(math.isfinite(t["val_loss"]) for t in trains))
+        img_s = [t["epochs"][-1]["img_s_after_first"] for t in trains]
+        emit({"phase": "parallel_train", "model": model_name,
+              "zero1": zero1, "ranks": 2, "backend": "gloo",
+              "device": "one card, two processes", "b_per_rank": 64,
+              "dtype": "bfloat16", "steps_per_rank": steps,
+              "img_per_s_after_first_per_rank": img_s,
+              "img_per_s_after_first_summed": sum(img_s),
+              "throughput_img_s_per_rank": [
+                  r["run"]["throughput_img_s"] for r in ranks],
+              "peak_memory_bytes_per_rank": [
+                  t["epochs"][-1]["peak_memory_bytes"] for t in trains],
+              "collective_ms_per_step_per_rank": [
+                  1e3 * t["epochs"][-1]["collective_seconds"]
+                  / t["epochs"][-1]["steps"] for t in trains],
+              "collective_calls_per_step": [
+                  t["epochs"][-1]["collective_calls"]
+                  / t["epochs"][-1]["steps"] for t in trains],
+              "train_loss": trains[0]["train_loss"],
+              "val_loss": trains[0]["val_loss"],
+              "launches_per_rank": [r["launches"] for r in ranks],
+              "card": smi, "ok": ok})
+        if not ok:
+            raise AssertionError(f"parallel_train {model_name} zero1 "
+                                 f"{zero1}: steps {steps}")
+        for r in (0, 1):
+            tag = "_zero1" if zero1 else ""
+            by_run[f"{model_name}_parallel_train{tag}_rank{r}"] = (
+                ranks[r]["launches"])
+        if model_name == "aff_mini" and zero1:
+            kept = (outs[i], trains[0]["checkpoint"], trains[0]["val_loss"])
+        else:
+            shutil.rmtree(outs[i], ignore_errors=True)
+    emit({"phase": "parallel_train_ranks", "runs": len(runs),
+          "seconds": secs})
+
+    # a world of one with NCCL, as torchrun starts each process of a
+    # multi-card host
+    out = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    try:
+        argv = ["--cfg", preset_path("aff_mini.yaml"), "--device", "cuda",
+                "--data-path", "no_dataset", "--batch-size", "64",
+                "--epochs", "1", "--output", out]
+        t0 = time.perf_counter()
+        (lines,) = main_runs(run_ranks(
+            (PARALLEL_MAIN, json.dumps([argv])), 1,
+            {"MASTER_ADDR": "localhost",
+             "MASTER_PORT": str(free_ports(1)[0])}))
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    (run,) = lines
+    train = run["run"]["train"]
+    ok = (run["run"]["world"] == 1 and run["run"]["backend"] == "nccl"
+          and train["steps"] == 4
+          and run["launches"] == expect_path("aff_mini", 50 + 30 + 4, 4)
+          and math.isfinite(train["val_loss"]))
+    emit({"phase": "parallel_nccl_world1", "model": "aff_mini",
+          "backend": "nccl", "world": 1, "b": 64, "dtype": "bfloat16",
+          "steps": train["steps"],
+          "img_per_s_after_first": train["train_img_s_after_first"],
+          "seconds": secs, "launches": run["launches"], "card": smi,
+          "ok": ok})
+    if not ok:
+        raise AssertionError("world-of-one NCCL run of main")
+    by_run["aff_mini_nccl_world1"] = run["launches"]
+    return by_run, kept
+
+
+def phase_parallel_ckpt(torch, smi, kept):
+    """The two-rank ZeRO-1 run's checkpoint (AFF-Mini, bf16) in one
+    process: ``main --eval --resume`` at b = 64 over the same 256
+    synthetic validation images reproduces the run's val loss within 1e-3
+    relative (bf16; the two ranks' global batches of 2 x 64 hold other
+    images than the one process's batches of 64, which moves the
+    batch-wide max of the clustering's sort key and cuBLAS's choice of
+    kernel) and gives the launches of an eval."""
+    import shutil
+
+    out, ckpt, val_loss = kept
+    try:
+        result, secs, launches = run_main(torch, [
+            "--cfg", preset_path("aff_mini.yaml"), "--device", "cuda",
+            "--data-path", "no_dataset", "--batch-size", "64", "--eval",
+            "--resume", ckpt])
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    rel = abs(result["loss"] - val_loss) / abs(val_loss)
+    ok = (rel <= 1e-3 and result["val_count"] == 256
+          and launches == expect_path("aff_mini", 50 + 30 + 4))
+    emit({"phase": "parallel_ckpt", "model": "aff_mini", "zero1": True,
+          "written_by_ranks": 2, "loaded_in": "one process",
+          "val_loss_ranks": val_loss, "val_loss_one": result["loss"],
+          "rel_err": rel, "val_count": result["val_count"],
+          "seconds": secs, "launches": launches, "card": smi, "ok": ok})
+    if not ok:
+        raise AssertionError(f"parallel_ckpt: val loss {result['loss']} vs "
+                             f"{val_loss}")
+
+
 def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
-                 mft_launches):
+                 mft_launches, tp_rows):
     """One entry per CUDA kernel: launches in the training run of the entry
     point (the AFF path, which runs them all), the worst check error, and
     per AFF-Mini b128 bf16 pass (a forward for the forward kernels, a
@@ -2707,8 +3170,11 @@ def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
     at the final ratios) under ``maskfiner_ud_mini_train``. The dropout
     modes run on the MaskFiner training path with attention dropout only:
     their ``launches`` are the UD-Mini training run's with it
-    (``launches_from``). A kernel of the path that the run did not launch
-    fails the script."""
+    (``launches_from``). The attention forward and backward also carry
+    ``aff_mini_tp2``: their rows at AFF-Mini's tensor-parallel shapes (h/2
+    heads, c/2 channels), with the launches of rank 0 of the model-2 run
+    of parallel_check (two steps). A kernel of the path that the run did
+    not launch fails the script."""
     def total(rs, key):
         return sum(r[key] * r["per_pass"] for r in rs)
 
@@ -2754,6 +3220,9 @@ def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
         }
         if name == "cluster_attention_bwd":
             entry["launches_saved"] = launches["cluster_attention_bwd_saved"]
+        if name in tp_rows:
+            entry["aff_mini_tp2"] = block(
+                tp_rows[name], mft_launches["aff_mini_tp2_rank0"][name])
         if mf:
             entry["maskfiner_ud_mini"] = block(mf, mf_launches[name])
         for tag in ("r1", "final"):
@@ -2806,8 +3275,13 @@ def main() -> int:
         mft_launches.update(phase_export(torch))
         phase_flops(torch, smi)
         mft_launches["aff_mini_profile"] = phase_profile(torch, smi)
+        tp_rows = phase_parallel_kernels(torch)
+        mft_launches.update(phase_parallel_check(torch, smi))
+        by_run, kept = phase_parallel_train(torch, smi)
+        mft_launches.update(by_run)
+        phase_parallel_ckpt(torch, smi, kept)
         line = kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
-                            mft_launches)
+                            mft_launches, tp_rows)
     finally:
         stop_processes()
     emit(line)

@@ -20,7 +20,8 @@ __all__ = ["resolve_device"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
-    """``torch.device(device)``, refusing CUDA when no GPU is visible."""
+    """``torch.device(device)`` (``cuda``, ``cuda:N`` or ``cpu``), refusing
+    CUDA when no GPU is visible and an index past the visible cards."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -29,4 +30,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r} (use 'cuda' or 'cpu')")
+    if (dev.type == "cuda" and dev.index is not None
+            and dev.index >= torch.cuda.device_count()):
+        raise RuntimeError(f"device {device!r}: only "
+                           f"{torch.cuda.device_count()} CUDA devices")
     return dev

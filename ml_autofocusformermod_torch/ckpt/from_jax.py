@@ -16,7 +16,9 @@ from typing import Any, Dict, Iterator, List, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax", "torch_key"]
+from ..parallel.tp import shard_tensor
+
+__all__ = ["state_dict_from_flax", "rank_state_dict_from_flax", "torch_key"]
 
 _SEG_MAP = {
     "weight_net_fc": "weight_net.0",
@@ -88,3 +90,15 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
                 out[key[: -len("running_mean")] + "num_batches_tracked"] = (
                     torch.tensor(0, dtype=torch.long))
     return out
+
+
+def rank_state_dict_from_flax(variables: Mapping[str, Any], specs: Mapping,
+                              rank: int, size: int) -> Dict[str, torch.Tensor]:
+    """One model rank's ``state_dict`` of a tensor-parallel model: the
+    blocks that ``parallel/tp.py::plan`` (``specs``, at ``model`` size
+    ``size``) gives rank ``rank`` of :func:`state_dict_from_flax`'s
+    tensors, the rest whole. ZeRO-1 cuts no weight (only the optimizer's
+    moments and the EMA, which start from zeros and the weights), so a data
+    rank takes its model rank's dict as it is."""
+    return {k: (shard_tensor(t, specs[k], rank, size) if k in specs else t)
+            for k, t in state_dict_from_flax(variables).items()}

@@ -9,6 +9,14 @@ holds ``(state, epoch, max_accuracy, rng state)``. ``state`` is the model's
 the EMA copy and the step count; the rng state is that of the train
 state's four generators. Saves are synchronous and atomic (a temporary file
 renamed into place), so auto-resume never sees a partial checkpoint.
+
+Across processes (a train state with a ``layout``) a checkpoint still holds
+the one-process layout, as the JAX package's process 0 writes the global
+arrays (``orbax_io.py:73``): every rank takes part in gathering the
+tensor-parallel blocks over the model axis and the ZeRO-1 blocks of the
+moments and EMA over the data axis, and rank 0 alone writes. A load cuts
+each rank's blocks from that layout again, so a checkpoint written by W
+ranks resumes in one process and the reverse.
 """
 
 from __future__ import annotations
@@ -19,18 +27,86 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..parallel import comm
+from ..parallel import tp as tp_lib
+from ..parallel import zero as zero_lib
+
 __all__ = ["save_checkpoint", "load_checkpoint", "load_model_weights",
-           "auto_resume_helper"]
+           "auto_resume_helper", "full_ema", "local_state_dict", "full_tensor",
+           "local_tensor"]
 
 _CKPT_RE = re.compile(r"ckpt_epoch_(\d+)\.pt$")
 
 
+def full_tensor(key: str, t: torch.Tensor, layout, cut: bool) -> torch.Tensor:
+    """The one-process tensor of this rank's ``t`` (parameter ``key`` or a
+    tensor shaped like it; ``cut``: a moment or EMA, which ZeRO-1 cuts)."""
+    if layout is None:
+        return t
+    mesh = layout.mesh
+    if cut and key in layout.zero:
+        t = comm.all_gather(t, mesh.data_group, dim=layout.zero[key])
+    if key in layout.tp:
+        blocks = comm.all_gather(t[None], mesh.model_group, dim=0)
+        t = tp_lib.unshard(blocks.unbind(0), layout.tp[key])
+    return t
+
+
+def local_tensor(key: str, t: torch.Tensor, layout, cut: bool) -> torch.Tensor:
+    """This rank's block of the one-process tensor ``t`` (the inverse of
+    :func:`full_tensor`)."""
+    if layout is None:
+        return t
+    mesh = layout.mesh
+    if key in layout.tp:
+        t = tp_lib.shard_tensor(t, layout.tp[key], mesh.model_rank,
+                                mesh.model)
+    if cut and key in layout.zero:
+        t = zero_lib.block(t, layout.zero[key], mesh)
+    return t
+
+
+def local_state_dict(state_dict, layout):
+    """This rank's blocks of a one-process model ``state_dict`` (the dict
+    itself without a ``layout``); keys it does not shard pass as they
+    are."""
+    if layout is None:
+        return state_dict
+    return {k: local_tensor(k, t, layout, False)
+            for k, t in state_dict.items()}
+
+
+def _optimizer_state(opt_state: dict, to) -> dict:
+    """An optimizer ``state_dict`` with every per-parameter tensor passed
+    through ``to`` (:func:`full_tensor` or :func:`local_tensor`); only
+    AdamW's moments are cut."""
+    return {name: ({k: to(k, t, name in ("mu", "nu")) for k, t in v.items()}
+                   if isinstance(v, dict) else v)
+            for name, v in opt_state.items()}
+
+
+def full_ema(state):
+    """The train state's EMA in the one-process layout of this rank's
+    model (ZeRO-1 blocks gathered over the data axis, tensor-parallel
+    blocks kept): what an EMA copy of ``state.model`` loads."""
+    layout = state.layout
+    if state.ema is None or layout is None or not layout.zero:
+        return state.ema
+    return {k: (comm.all_gather(t, layout.mesh.data_group,
+                                dim=layout.zero[k]) if k in layout.zero
+                else t) for k, t in state.ema.items()}
+
+
 def _payload(state, epoch: int, max_accuracy: float) -> dict:
+    layout = getattr(state, "layout", None)
+    to = lambda k, t, cut: full_tensor(k, t, layout, cut)
     return {
         "state": {
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "ema": state.ema,
+            "model": {k: to(k, t, False)
+                      for k, t in state.model.state_dict().items()},
+            "optimizer": _optimizer_state(state.optimizer.state_dict(), to),
+            "ema": (None if state.ema is None else
+                    {k: to(k, t, True) for k, t in state.ema.items()}),
             "step": state.step,
         },
         "epoch": epoch,
@@ -45,7 +121,14 @@ def _payload(state, epoch: int, max_accuracy: float) -> dict:
 def save_checkpoint(output_dir: str, epoch: int, state, max_accuracy: float,
                     keep_every: int = 5) -> str:
     """Write ``ckpt_epoch_<epoch>.pt`` and prune older checkpoints that are
-    neither the newest nor a multiple of ``keep_every``."""
+    neither the newest nor a multiple of ``keep_every``. Across processes
+    every rank calls it (the gathers) and rank 0 alone writes; every rank
+    returns the path."""
+    path = os.path.join(os.path.abspath(output_dir), f"ckpt_epoch_{epoch}.pt")
+    payload = _payload(state, epoch, max_accuracy)
+    layout = getattr(state, "layout", None)
+    if layout is not None and layout.mesh.rank != 0:
+        return path
     os.makedirs(output_dir, exist_ok=True)
     committed = {}
     for name in os.listdir(output_dir):
@@ -57,24 +140,26 @@ def save_checkpoint(output_dir: str, epoch: int, state, max_accuracy: float,
         if e != newest and e != epoch and (keep_every <= 0
                                            or e % keep_every != 0):
             os.remove(os.path.join(output_dir, name))
-    path = os.path.join(os.path.abspath(output_dir), f"ckpt_epoch_{epoch}.pt")
     tmp = f"{path}.tmp"
-    torch.save(_payload(state, epoch, max_accuracy), tmp)
+    torch.save(payload, tmp)
     os.replace(tmp, path)
     return path
 
 
 def load_checkpoint(path: str, state) -> Tuple[object, int, float]:
     """Restore ``state`` in place from ``path``; returns ``(state, epoch,
-    max_accuracy)``. The generators' states are restored too."""
+    max_accuracy)``. The generators' states are restored too. Across
+    processes each rank loads its blocks of the one-process layout."""
     device = next(state.model.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=False)
     saved = ckpt["state"]
-    state.model.load_state_dict(saved["model"])
-    state.optimizer.load_state_dict(saved["optimizer"])
+    layout = getattr(state, "layout", None)
+    to = lambda k, t, cut: local_tensor(k, t, layout, cut)
+    state.model.load_state_dict(local_state_dict(saved["model"], layout))
+    state.optimizer.load_state_dict(_optimizer_state(saved["optimizer"], to))
     if state.ema is not None and saved["ema"] is not None:
         for k, t in saved["ema"].items():
-            state.ema[k].copy_(t)
+            state.ema[k].copy_(to(k, t, True))
     state.step = int(saved["step"])
     state.drop_generator.set_state(ckpt["rng"]["drop"].cpu())
     state.mix_generator.set_state(ckpt["rng"]["mix"].cpu())
@@ -85,14 +170,14 @@ def load_checkpoint(path: str, state) -> Tuple[object, int, float]:
     return state, int(ckpt["epoch"]), float(ckpt["max_accuracy"])
 
 
-def load_model_weights(path: str, model) -> int:
+def load_model_weights(path: str, model, layout=None) -> int:
     """Load only the model's ``state_dict`` (parameters and BatchNorm
-    buffers) of the checkpoint at ``path`` into ``model`` (strict); returns
-    the checkpoint's epoch. For evaluation and throughput, where no train
-    state exists."""
+    buffers) of the checkpoint at ``path`` into ``model`` (strict; this
+    rank's blocks under ``layout``); returns the checkpoint's epoch. For
+    evaluation and throughput, where no train state exists."""
     device = next(model.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=False)
-    model.load_state_dict(ckpt["state"]["model"])
+    model.load_state_dict(local_state_dict(ckpt["state"]["model"], layout))
     return int(ckpt["epoch"])
 
 

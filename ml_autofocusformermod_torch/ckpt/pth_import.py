@@ -18,6 +18,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from .io import local_state_dict
+
 __all__ = ["load_pth_state_dict", "import_reference_state_dict",
            "load_reference_weights"]
 
@@ -74,8 +76,10 @@ def import_reference_state_dict(model: torch.nn.Module,
     return missing, unexpected
 
 
-def load_reference_weights(path: str, model: torch.nn.Module
+def load_reference_weights(path: str, model: torch.nn.Module, layout=None
                            ) -> Tuple[List[str], List[str]]:
     """:func:`load_pth_state_dict` then :func:`import_reference_state_dict`
-    into ``model``; returns ``(missing, unexpected)``."""
-    return import_reference_state_dict(model, load_pth_state_dict(path))
+    into ``model`` (this rank's blocks of it under ``layout``, a
+    ``parallel/zero.py::Layout``); returns ``(missing, unexpected)``."""
+    state_dict = local_state_dict(load_pth_state_dict(path), layout)
+    return import_reference_state_dict(model, state_dict)

@@ -4,8 +4,11 @@
     python -m ml_autofocusformermod_torch.main --cfg <yaml> [--eval]
         [--throughput] [--resume CKPT] [--batch-size N] [--epochs N]
         [--blr LR] [--data-path P] [--accumulation-steps N] [--output DIR]
-        [--tag T] [--profile DIR] [--device cuda|cpu]
+        [--tag T] [--profile DIR] [--device cuda|cuda:N|cpu]
+        [--dist-backend nccl|gloo] [--dist-url URL]
         [--opts KEY VALUE ...]
+
+    torchrun --nproc-per-node N -m ml_autofocusformermod_torch.main ...
 
 Reads the ImageFolder under ``--data-path`` (``<path>/train`` and
 ``<path>/val``; synthetic images where a split is absent) and takes
@@ -29,15 +32,27 @@ at the start of an epoch). Batches reach the device through
 ``data/prefetch.py``. With ``PROFILE`` (``--profile DIR``) the train
 steps ``[PROFILE_START, PROFILE_START + PROFILE_STEPS)`` are traced into
 that directory (``utils/profiling.py``). ``TPU.REMAT`` recomputes each
-block's forward in the backward. Settings the port cannot honour (the
-mesh keys, ``TPU.ZERO1``, ``TPU.USE_PALLAS: false`` on the card) raise.
-Runs on ``cuda`` unless ``--device cpu``; with no GPU it raises.
+block's forward in the backward. Settings the port cannot honour
+(``TPU.MESH_SEQ > 1``, a mesh that does not match the processes,
+``TPU.USE_PALLAS: false`` on the card) raise. Runs on ``cuda`` unless
+``--device cpu``; with no GPU it raises.
+
+Under torchrun's environment (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``)
+each process is one rank of ``parallel/mesh.py``'s ``(TPU.MESH_DATA,
+TPU.MESH_MODEL)`` layout, on ``cuda:LOCAL_RANK`` unless ``--device`` names
+a device (two ranks may share one card with ``--device cuda:0
+--dist-backend gloo``). Each data rank loads its shard of the data, so the
+global batch is ``DATA.BATCH_SIZE x data`` and the learning rate is scaled
+by it; the model is sharded over the model axis (``parallel/tp.py``) and,
+with ``TPU.ZERO1``, the moments and EMA over the data axis
+(``parallel/zero.py``). Every rank measures its throughput; validation
+sums over the data ranks; rank 0 alone writes the checkpoints, the logs,
+``config.json`` and the metrics log. The process group ends with the run.
 """
 
 from __future__ import annotations
 
 import argparse
-import copy
 import datetime
 import json
 import os
@@ -48,17 +63,20 @@ from typing import List, Optional
 import torch
 
 from . import resolve_device
-from .ckpt.io import (auto_resume_helper, load_checkpoint,
+from .ckpt.io import (auto_resume_helper, full_ema, load_checkpoint,
                       load_model_weights, save_checkpoint)
 from .ckpt.pth_import import load_reference_weights
 from .config import get_config
 from .data.imagenet import build_loaders
 from .data.prefetch import prefetch_to_device
 from .models.build import build_model, check_switches
+from .parallel import comm
+from .parallel import mesh as mesh_lib
+from .parallel.zero import make_layout
 from .train import curriculum
 from .train.optim import scale_base_lr
-from .train.trainer import (create_train_state, make_eval_step,
-                            make_train_step, throughput)
+from .train.trainer import (create_train_state, ema_tensors,
+                            make_eval_step, make_train_step, throughput)
 from .utils.flops import model_complexity
 from .utils.logger import create_logger
 from .utils.meters import AverageMeter
@@ -90,15 +108,25 @@ def parse_option(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="Perform evaluation only")
     parser.add_argument("--throughput", action="store_true",
                         help="Test throughput only")
-    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                        help="device to run on (default cuda)")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda, cuda:N or cpu (default cuda; under "
+                             "torchrun cuda:LOCAL_RANK)")
+    parser.add_argument("--dist-backend", default=None,
+                        choices=("nccl", "gloo"),
+                        help="process group backend (default nccl on the "
+                             "card, gloo on the CPU)")
+    parser.add_argument("--dist-url", default="env://",
+                        help="process group rendezvous (default env://, "
+                             "torchrun's MASTER_ADDR and MASTER_PORT)")
     return parser.parse_args(argv)
 
 
 def validate(eval_step, loader, device) -> dict:
     """acc1 / acc5 (percent) and mean CE over the valid rows of
     ``loader``'s batches (JAX ``main.py:242-266``: a batch's padding rows
-    count for nothing, a short batch for its rows)."""
+    count for nothing, a short batch for its rows); under data
+    parallelism ``eval_step`` sums over the data ranks, each of which
+    iterates its own shard."""
     sums = {"loss_sum": 0.0, "top1": 0, "top5": 0, "count": 0}
     for batch in prefetch_to_device(loader, device):
         out = eval_step(batch["image"].float(), batch["label"],
@@ -136,7 +164,8 @@ def resume_path(config) -> Optional[str]:
     return resume or None
 
 
-def load_reference(config, model, resume: Optional[str], log) -> dict:
+def load_reference(config, model, resume: Optional[str], log,
+                   layout=None) -> dict:
     """Reference ``.pth`` weights into ``model``, in JAX ``main.py:169-211``
     order: ``MODEL.AFF.PRETRAINED`` or else ``MODEL.PRETRAINED``, then a
     ``.pth`` ``resume`` (weights only; the start epoch stays). strict=False:
@@ -145,13 +174,14 @@ def load_reference(config, model, resume: Optional[str], log) -> dict:
     loaded = {}
     pretrained = config.MODEL.AFF.PRETRAINED or config.MODEL.PRETRAINED
     if pretrained:
-        missing, unexpected = load_reference_weights(pretrained, model)
+        missing, unexpected = load_reference_weights(pretrained, model,
+                                                     layout)
         log(f"loaded pretrained {pretrained}: {len(missing)} missing, "
             f"{len(unexpected)} unexpected")
         loaded["pretrained"] = {"path": pretrained, "missing": missing,
                                 "unexpected": unexpected}
     if resume and resume.endswith(".pth"):
-        missing, unexpected = load_reference_weights(resume, model)
+        missing, unexpected = load_reference_weights(resume, model, layout)
         log(f"=> loaded torch checkpoint {resume} ({len(missing)} missing / "
             f"{len(unexpected)} unexpected)")
         loaded["resume_pth"] = {"path": resume, "missing": missing,
@@ -168,9 +198,10 @@ def train(config, state, schedule, device, loader, val, logger,
     numbers."""
     batch_size = config.DATA.BATCH_SIZE
     model = state.model
+    rank0 = state.layout is None or state.layout.mesh.rank == 0
     metrics_log = MetricsLogger(config.OUTPUT, project="CandidateNet",
                                 name=config.MODEL.NAME,
-                                config=config.to_dict())
+                                config=config.to_dict(), enabled=rank0)
     train_step = make_train_step(config, state, schedule)
     eval_step = make_eval_step(config, model)
 
@@ -207,6 +238,7 @@ def train(config, state, schedule, device, loader, val, logger,
         loader.set_epoch(epoch)
         meters = {k: AverageMeter() for k in ("loss", "grad_norm")}
         step_seconds, wait_seconds, skipped = [], [], 0
+        comm_calls, comm_seconds = comm.STATS["calls"], comm.STATS["seconds"]
         t0 = time.time()
         t_prev = time.perf_counter()
         # decode, augment and the H2D copy run ahead on two threads
@@ -255,7 +287,10 @@ def train(config, state, schedule, device, loader, val, logger,
             img_s_after_first=img_s_after_first,
             wall_img_s_after_first=wall_img_s_after_first,
             step_seconds=step_seconds, data_wait_seconds=wait_seconds,
-            peak_memory_bytes=peak))
+            peak_memory_bytes=peak,
+            # the collectives of the epoch's steps (parallel/comm.py::STATS)
+            collective_calls=comm.STATS["calls"] - comm_calls,
+            collective_seconds=comm.STATS["seconds"] - comm_seconds))
         result.update(epoch=epoch, steps=steps, skipped_steps=skipped,
                       train_loss=meters["loss"].avg,
                       last_loss=meters["loss"].val,
@@ -280,13 +315,19 @@ def train(config, state, schedule, device, loader, val, logger,
                           val_loss=acc["loss"], val_count=acc["count"],
                           max_accuracy=max_accuracy)
             if state.ema is not None:
-                ema_model = copy.deepcopy(model)
+                # the EMA weights in the model for one validation, then the
+                # model's own back (a copy of a sharded model would share
+                # its process groups)
+                live = {k: t.detach().clone()
+                        for k, t in ema_tensors(model).items()}
+                shadow = full_ema(state)
                 with torch.no_grad():
-                    for k, t in ema_model.state_dict(keep_vars=True).items():
-                        if k in state.ema:
-                            t.copy_(state.ema[k])
-                ema = validate(make_eval_step(config, ema_model), val,
-                               device)
+                    for k, t in ema_tensors(model).items():
+                        t.copy_(shadow[k])
+                ema = validate(make_eval_step(config, model), val, device)
+                with torch.no_grad():
+                    for k, t in ema_tensors(model).items():
+                        t.copy_(live[k])
                 logger.info(f"EMA Accuracy: {ema['acc1']:.2f}% / "
                             f"{ema['acc5']:.2f}%")
                 result.update(ema_acc1=ema["acc1"], ema_acc5=ema["acc5"])
@@ -302,36 +343,75 @@ def train(config, state, schedule, device, loader, val, logger,
 def main(argv: Optional[List[str]] = None) -> dict:
     """Run the CLI; returns ``{"throughput_img_s", ...}`` with acc1 / acc5 /
     loss after ``--eval`` and the training numbers (``train``) otherwise,
-    and prints it as a JSON line."""
+    and prints it as a JSON line (every rank its own)."""
     args = parse_option(argv)
     config = get_config(args)
-    device = resolve_device(args.device)
-    check_switches(config, device)
-    # linear LR scaling over the batch (reference main.py:437-449)
+    rank, world, local_rank = mesh_lib.init_distributed(
+        args.device, args.dist_backend, args.dist_url)
+    try:
+        return _run(args, config, rank, world, local_rank)
+    finally:
+        mesh_lib.destroy()
+
+
+def _run(args, config, rank: int, world: int, local_rank: int) -> dict:
+    device = resolve_device(f"cuda:{local_rank}" if args.device == "cuda"
+                            and world > 1 else args.device)
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    check_switches(config, device, world)
+    mesh = mesh_lib.make_mesh(int(config.TPU.MESH_DATA),
+                              int(config.TPU.MESH_MODEL),
+                              int(config.TPU.MESH_SEQ))
+    # linear LR scaling over the global batch (reference main.py:437-449,
+    # JAX main.py:78-86)
     config.defrost()
-    scale_base_lr(config, config.DATA.BATCH_SIZE)
+    scale_base_lr(config, config.DATA.BATCH_SIZE * mesh.data)
     config.freeze()
     training = not (config.EVAL_MODE or config.THROUGHPUT_MODE)
+
+    def log(msg: str) -> None:
+        if rank == 0:
+            print(msg, flush=True)
+
     if device.type == "cuda":
-        print(f"device: {torch.cuda.get_device_name(device)}", flush=True)
+        log(f"device: {torch.cuda.get_device_name(device)}")
+    if world > 1:
+        log(f"mesh: data {mesh.data} x model {mesh.model} over {world} "
+            f"processes ({torch.distributed.get_backend()}); global batch "
+            f"{config.DATA.BATCH_SIZE * mesh.data}")
     resume = resume_path(config)
-    train_loader, val_loader, num_classes = build_loaders(config)
+    train_loader, val_loader, num_classes = build_loaders(
+        config, host=mesh.data_rank, num_hosts=mesh.data)
     if num_classes != config.MODEL.NUM_CLASSES:  # JAX main.py:114-120
         config.defrost()
         config.MODEL.NUM_CLASSES = num_classes
         config.freeze()
     model = build_model(config, device)
-
-    def log(msg: str) -> None:
-        print(msg, flush=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    cost = None
+    if config.PRINT_FLOPS:
+        # JAX main.py:135-155, on the whole model before the layout (and
+        # its mesh) is made; a count that fails fails the run
+        cost = model_complexity(model, config.DATA.IMG_SIZE)
+        log(f"number of GFLOPs: {cost['flops'] / 1e9:.2f} "
+            f"(torch FlopCounterMode, fwd per image)")
+        if cost["peak_bytes"] == cost["peak_bytes"]:  # not NaN
+            log(f"fwd peak device memory: "
+                f"{cost['peak_bytes'] / 2**20:.1f} MiB")
+    # the tensor-parallel and ZeRO-1 layout (JAX main.py:213-224); it
+    # installs the mesh that the model's batch-wide reductions read
+    layout = (make_layout(model, mesh, bool(config.TPU.ZERO1))
+              if world > 1 else None)
 
     # weights, in JAX main.py:169-211 order, before the throughput: in
     # training after the train state is made, so an EMA copy keeps the
     # initial weights, as in JAX
     if training:
         state, schedule = create_train_state(config, model,
-                                             max(len(train_loader), 1))
-    weights = load_reference(config, model, resume, log)
+                                             max(len(train_loader), 1),
+                                             layout=layout)
+    weights = load_reference(config, model, resume, log, layout)
     start_epoch, max_accuracy = config.TRAIN.START_EPOCH, 0.0
     if resume and not resume.endswith(".pth"):
         if training:
@@ -339,36 +419,32 @@ def main(argv: Optional[List[str]] = None) -> dict:
             start_epoch = epoch + 1
             log(f"=> resumed from {resume} (epoch {epoch})")
         else:
-            epoch = load_model_weights(resume, model)
+            epoch = load_model_weights(resume, model, layout)
             log(f"=> loaded {resume} (epoch {epoch})")
-    n_params = sum(p.numel() for p in model.parameters())
     log(f"{config.MODEL.NAME}: {n_params} params, "
         f"{config.TPU.COMPUTE_DTYPE}, batch {config.DATA.BATCH_SIZE}, "
         f"{num_classes} classes")
-    cost = None
-    if config.PRINT_FLOPS:
-        # JAX main.py:135-155; a count that fails fails the run
-        cost = model_complexity(model, config.DATA.IMG_SIZE)
-        log(f"number of GFLOPs: {cost['flops'] / 1e9:.2f} "
-            f"(torch FlopCounterMode, fwd per image)")
-        if cost["peak_bytes"] == cost["peak_bytes"]:  # not NaN
-            log(f"fwd peak device memory: "
-                f"{cost['peak_bytes'] / 2**20:.1f} MiB")
 
     batch = next(iter(val_loader))
     fps = throughput(model, batch["image"].to(device).float())
     log(f"throughput averaged with 30 times: {fps:.1f} img/s")
     result = {"throughput_img_s": fps, "num_classes": num_classes,
-              "weights": weights, "complexity": cost}
+              "weights": weights, "complexity": cost, "rank": rank,
+              "world": world, "data": mesh.data, "model": mesh.model,
+              "backend": (torch.distributed.get_backend()
+                          if torch.distributed.is_initialized() else None)}
     if config.THROUGHPUT_MODE:
         print(json.dumps(result), flush=True)
         return result
 
     if training:
-        os.makedirs(config.OUTPUT, exist_ok=True)
-        logger = create_logger(config.OUTPUT, 0, config.MODEL.NAME)
-        with open(os.path.join(config.OUTPUT, "config.json"), "w") as f:
-            json.dump(config.to_dict(), f, indent=2)
+        if rank == 0:
+            os.makedirs(config.OUTPUT, exist_ok=True)
+            with open(os.path.join(config.OUTPUT, "config.json"), "w") as f:
+                json.dump(config.to_dict(), f, indent=2)
+        # the log file and the console on rank 0 only
+        logger = create_logger(config.OUTPUT if rank == 0 else "", rank,
+                               config.MODEL.NAME)
         result["train"] = train(config, state, schedule, device,
                                 train_loader, val_loader, logger,
                                 start_epoch, max_accuracy)

@@ -23,6 +23,7 @@ from ..ops.cluster_attention import constant_tile_metadata, tile_metadata
 from ..ops.cluster_gather import cluster_token_index
 from ..ops.knn import knn
 from ..ops.sfc import grid_tensors, space_filling_cluster
+from ..parallel import comm
 from .layers import (
     ClusterMerging,
     ClusterTransformerBlock,
@@ -36,6 +37,11 @@ from .layers import (
 )
 
 __all__ = ["BasicLayer", "AutoFocusFormer"]
+
+
+def _global_batch_max(x: torch.Tensor) -> torch.Tensor:
+    """The max over the data ranks (the global batch's max)."""
+    return comm.data_all_reduce(x, op="max")
 
 
 class BasicLayer(nn.Module):
@@ -90,7 +96,8 @@ class BasicLayer(nn.Module):
                 ncc = g_ncc[None].expand(b, n, nnc)
                 tile_meta = constant_tile_metadata(g_ncc)
             else:
-                pos, mean_pos, _, _, reorder = space_filling_cluster(pos, m, h, w)
+                pos, mean_pos, _, _, reorder = space_filling_cluster(
+                    pos, m, h, w, batch_max=_global_batch_max)
                 feat = torch.gather(
                     feat, 1, reorder.expand(b, n, feat.shape[2]))
                 ncc = knn(pos, mean_pos, nnc)  # b n nnc int32

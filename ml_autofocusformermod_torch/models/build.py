@@ -3,7 +3,10 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from .aff import AutoFocusFormer
@@ -18,25 +21,36 @@ DTYPES = {
 }
 
 
-def check_switches(config, device) -> None:
-    """Refuse the JAX package's settings that the port cannot honour on one
-    card, rather than ignore them: tensor and sequence parallelism, ZeRO-1
-    and a data mesh of more than one device (ROADMAP A11, not ported), and
+def check_switches(config, device, world: Optional[int] = None) -> None:
+    """Refuse the JAX package's settings that the port cannot honour,
+    rather than ignore them: sequence parallelism (``TPU.MESH_SEQ > 1``,
+    ROADMAP A11b), a mesh whose sizes do not multiply to the ``world`` of
+    processes (default: the running process group's, 1 without one), a
+    ``DATA.BATCH_SIZE`` that the data size does not divide, and
     ``TPU.USE_PALLAS: false`` on the card, which has no kernel-free route
     (the CPU path is the plain version anyway)."""
     tpu = config.TPU
-    a11 = "is not ported (ROADMAP A11: parallelism across cards)"
-    if int(tpu.MESH_MODEL) > 1:
-        raise ValueError(f"TPU.MESH_MODEL={tpu.MESH_MODEL}: tensor "
-                         f"parallelism {a11}")
     if int(tpu.MESH_SEQ) > 1:
-        raise ValueError(f"TPU.MESH_SEQ={tpu.MESH_SEQ}: sequence "
-                         f"parallelism {a11}")
-    if tpu.ZERO1:
-        raise ValueError(f"TPU.ZERO1: sharded optimizer state {a11}")
-    if int(tpu.MESH_DATA) not in (-1, 1):
-        raise ValueError(f"TPU.MESH_DATA={tpu.MESH_DATA}: data parallelism "
-                         f"{a11}; the port runs on one device (-1 or 1)")
+        raise ValueError(f"TPU.MESH_SEQ={tpu.MESH_SEQ}: sequence parallelism "
+                         "is not ported (ROADMAP A11b)")
+    if world is None:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+    data, model = int(tpu.MESH_DATA), int(tpu.MESH_MODEL)
+    if model < 1 or (data != -1 and data < 1):
+        raise ValueError(f"TPU.MESH_DATA={data}, TPU.MESH_MODEL={model}: "
+                         "sizes are positive (-1: every rank left for data)")
+    if data == -1:
+        if world % model:
+            raise ValueError(f"mesh TPU.MESH_DATA=-1 x TPU.MESH_MODEL="
+                             f"{model} != {world} processes (TPU.MESH_MODEL "
+                             "does not divide them)")
+        data = world // model
+    if data * model != world:
+        raise ValueError(f"mesh TPU.MESH_DATA={data} x TPU.MESH_MODEL="
+                         f"{model} != {world} processes")
+    if config.DATA.BATCH_SIZE % data:
+        raise ValueError(f"DATA.BATCH_SIZE={config.DATA.BATCH_SIZE} must be "
+                         f"divisible by the data size {data}")
     if not tpu.USE_PALLAS and torch.device(device).type == "cuda":
         raise ValueError("TPU.USE_PALLAS=False: the port has no kernel-free "
                          "route on the card; run --device cpu for the plain "

@@ -34,13 +34,14 @@ from ..ops.cluster_gather import gather_clusters, gather_rows
 from ..ops.cluster_merge import fused_cluster_merge
 from ..ops.clusten import wf_contract
 from ..ops.knn import nearest_other_distance
+from ..parallel import comm
 
 __all__ = [
     "Linear", "LayerNormFp32", "rel_pos_features", "Dropout", "DropPath",
     "Mlp",
     "ClusterAttention", "ClusterTransformerBlock", "ClusterMerging",
     "PatchEmbed", "batch_norm_train", "REMAT_MODES", "check_remat",
-    "remat_call",
+    "remat_call", "row_parallel",
 ]
 
 REMAT_MODES = ("", "blocks", "dots")
@@ -121,6 +122,18 @@ def remat_call(mode: str, block: nn.Module, *args):
     return checkpoint(run, *args, use_reentrant=False, **kwargs)
 
 
+def row_parallel(linear: "Linear", x, group):
+    """``linear(x)`` for a row-parallel layer: with a tensor-parallel
+    ``group`` the product of this rank's input block and weight columns,
+    summed over the group (Megatron's g), then the bias, added once."""
+    if group is None:
+        return linear(x)
+    dt = linear.compute_dtype
+    y = comm.reduce_from_model(F.linear(x.to(dt), linear.weight.to(dt)),
+                               group)
+    return y + linear.bias.to(dt)
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` whose product runs in ``compute_dtype`` (flax ``Dense``
     with ``dtype=``): input, weight and bias are cast, params stay f32.
@@ -173,7 +186,11 @@ class Dropout(nn.Module):
 
     The mask is drawn on the input's device from ``generator`` (a
     ``torch.Generator`` on that device, set by the trainer) or, when it is
-    None, from torch's global generator.
+    None, from torch's global generator. Inside a tensor-parallel layer
+    ``x`` is this rank's block along ``dim`` of the activation, and
+    ``group`` the layer's model group: the mask is drawn for the whole
+    activation, as one process draws it, and sliced to the rank's block, so
+    the model ranks' generators stay in step and each drops its own block.
     """
 
     def __init__(self, p: float = 0.0):
@@ -181,13 +198,18 @@ class Dropout(nn.Module):
         self.p = float(p)
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x):
+    def forward(self, x, group=None, dim: int = -1):
         if self.p == 0.0 or not self.training:
             return x
         if self.p >= 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.p
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        parts = comm.size(group)
+        shape = list(x.shape)
+        shape[dim] *= parts
+        u = torch.rand(shape, generator=self.generator, device=x.device)
+        if parts > 1:
+            u = u.chunk(parts, dim=dim)[comm.rank(group)]
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
@@ -198,7 +220,8 @@ class DropPath(nn.Module):
 
     The mask is drawn from ``generator`` (a ``torch.Generator`` on the
     input's device, set by the trainer) or, when it is None, from torch's
-    global generator.
+    global generator. Under data parallelism it is the global batch's draw,
+    sliced to this rank's rows (``parallel/comm.py::global_draw``).
     """
 
     def __init__(self, rate: float = 0.0):
@@ -210,24 +233,32 @@ class DropPath(nn.Module):
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        u = torch.rand(shape, generator=self.generator, device=x.device)
+        u = comm.global_draw(
+            lambda rows: torch.rand((rows,) + (1,) * (x.ndim - 1),
+                                    generator=self.generator,
+                                    device=x.device), x.shape[0])
         mask = u < keep
         return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
 class Mlp(nn.Module):
     """fc1 -> exact GELU -> dropout -> fc2 -> dropout (JAX package
-    ``layers.py:239-261``)."""
+    ``layers.py:239-261``). Tensor-parallel when ``tp_group`` is set
+    (``parallel/tp.py``): fc1 holds this rank's block of the hidden units,
+    fc2 the matching input columns."""
 
     def __init__(self, dim, hidden, out, compute_dtype, drop: float = 0.0):
         super().__init__()
         self.fc1 = Linear(dim, hidden, compute_dtype)
         self.fc2 = Linear(hidden, out, compute_dtype)
         self.drop = Dropout(drop)
+        self.tp_group = None
 
     def forward(self, x):
-        return self.drop(self.fc2(self.drop(F.gelu(self.fc1(x)))))
+        if self.tp_group is not None:
+            x = comm.copy_to_model(x, self.tp_group)
+        x = self.drop(F.gelu(self.fc1(x)), self.tp_group)
+        return self.drop(row_parallel(self.fc2, x, self.tp_group))
 
 
 class ClusterAttention(nn.Module):
@@ -247,6 +278,14 @@ class ClusterAttention(nn.Module):
     ``clamp_width`` (MixRes: the rel-pos table width, 0 for AFF) clamps the
     local mode's relative coordinates inside the kernel; in the global mode
     the caller's ``pe_feat`` carries the clamp.
+
+    Tensor-parallel when ``tp_group`` is set (``parallel/tp.py``): the
+    layer holds ``num_heads`` local heads (its block of q, kv, pos_embed
+    and the blank tokens, and proj's matching input columns), runs the
+    attention on them and sums proj's partial products over the group. Its
+    dropout seed is offset to its first head
+    (``ops/cluster_attention.py::head_offset_seed``), so each rank drops
+    its heads' probabilities as one process drops them.
     """
 
     def __init__(self, dim, num_heads, rel_pos_width,
@@ -266,19 +305,27 @@ class ClusterAttention(nn.Module):
         self.blank_k = nn.Parameter(torch.empty(dim))
         self.blank_v = nn.Parameter(torch.empty(dim))
         self.proj = Linear(dim, dim, compute_dtype)
+        self.tp_group = None
 
     def forward(self, feat, global_attn: bool, pe_feat=None,
                 nearest_cluster=None, cluster_size: int = 0, pos=None,
                 tile_meta=None):
-        b, n, c = feat.shape
+        if self.tp_group is not None:
+            feat = comm.copy_to_model(feat, self.tp_group)
+        b, n, _ = feat.shape
         h = self.num_heads
-        c_ = c // h
+        c_ = self.q.weight.shape[0] // h
+        c = h * c_  # this rank's channels
         q = self.q(feat) * c_**-0.5
         kv = self.kv(feat)
         if not global_attn:
             rate = self.attn_drop.p if self.training else 0.0
-            seed = (attention_ops.draw_drop_seed(self.attn_drop_generator)
-                    if rate > 0.0 else None)
+            seed = None
+            if rate > 0.0:
+                seed = attention_ops.draw_drop_seed(self.attn_drop_generator)
+                if self.tp_group is not None:  # this rank's heads
+                    seed = attention_ops.head_offset_seed(
+                        seed, comm.rank(self.tp_group) * h)
             out = fused_cluster_attention(
                 q.contiguous(), kv.contiguous(), nearest_cluster, pos,
                 self.pos_embed.weight.t(), self.pos_embed.bias,
@@ -298,12 +345,12 @@ class ClusterAttention(nn.Module):
             attn = torch.matmul(q, key.transpose(-1, -2)) + bias
             attn = torch.cat([attn, blank_attn], dim=-1)
             attn = torch.softmax(attn.float(), dim=-1).to(dt)
-            attn = self.attn_drop(attn)
+            attn = self.attn_drop(attn, self.tp_group, dim=1)
             blank_w = attn[..., -1:]
             out = torch.matmul(attn[..., :-1], v)
             out = out + blank_w * self.blank_v.to(dt).reshape(1, h, 1, c_)
             out = out.transpose(1, 2).reshape(b, n, c)
-        return self.proj_drop(self.proj(out))
+        return self.proj_drop(row_parallel(self.proj, out, self.tp_group))
 
 
 class ClusterTransformerBlock(nn.Module):
@@ -447,10 +494,23 @@ def batch_norm_train(x, bn: nn.BatchNorm2d, momentum: float = 0.9):
     (rsqrt(var + eps) * scale) + bias``. The running stats are updated in
     place as ``ra = momentum * ra + (1 - momentum) * stat`` with the biased
     variance, written out by hand: ``F.batch_norm(training=True)`` would
-    store the unbiased one. Returns float32."""
+    store the unbiased one. Returns float32.
+
+    Under data parallelism the statistics are the global batch's, as in
+    JAX's step on a batch-sharded mesh: the sums and sums of squares are
+    all-reduced over the data ranks (with their gradient), and the running
+    stats take the global values."""
     x32 = x.float()
-    mean = x32.mean(dim=(0, 2, 3))
-    mean2 = (x32 * x32).mean(dim=(0, 2, 3))
+    _, w, group = comm.data_coords()
+    if w == 1:
+        mean = x32.mean(dim=(0, 2, 3))
+        mean2 = (x32 * x32).mean(dim=(0, 2, 3))
+    else:
+        count = x32.numel() // x32.shape[1] * w
+        sums = comm.all_reduce(torch.stack([x32.sum(dim=(0, 2, 3)),
+                                            (x32 * x32).sum(dim=(0, 2, 3))]),
+                               group)
+        mean, mean2 = sums[0] / count, sums[1] / count
     var = torch.clamp_min(mean2 - mean * mean, 0.0)
     with torch.no_grad():
         bn.running_mean.copy_(momentum * bn.running_mean

@@ -14,6 +14,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn as nn
 
+from ..parallel import comm
 from .layers import LayerNormFp32
 from .mixres_common import MLP, init_mixres_weights
 
@@ -35,15 +36,20 @@ def random_upsampling_mask(model: nn.Module, j: int, b: int, n: int,
     the CPU and moved to ``device``, so that the GPU and CPU forwards of
     one model (and one generator state) split the same tokens. The stream
     is the port's own, not JAX's threefry: tests replay the JAX package's
-    masks by patching this module-level function."""
+    masks by patching this module-level function. Under data parallelism
+    both are the global batch's draw, sliced to this rank's rows
+    (``parallel/comm.py::global_draw``)."""
     if model.training:
-        return torch.randn((b, n), generator=model.upsample_generator).to(
-            device)
+        return comm.global_draw(
+            lambda rows: torch.randn((rows, n),
+                                     generator=model.upsample_generator),
+            b).to(device)
     key = (j, b, n, str(device))
     masks = model.upsampling_masks
     if key not in masks:
         gen = torch.Generator().manual_seed(model.mask_seed * 1009 + j)
-        masks[key] = torch.randn((b, n), generator=gen).to(device)
+        masks[key] = comm.global_draw(
+            lambda rows: torch.randn((rows, n), generator=gen), b).to(device)
     return masks[key]
 
 

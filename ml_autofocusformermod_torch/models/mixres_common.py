@@ -46,7 +46,9 @@ def sine_position_embedding(pos: torch.Tensor, num_pos_feats: int,
     """DETR-style sine embedding of (b, n, 2) positions (x, y), f32.
 
     The positions are normalised by their max over the WHOLE batch, not per
-    image, as in the JAX package."""
+    image, as in the JAX package. Under data parallelism no collective is
+    needed: both callers pass the same grid for every image, so each
+    rank's max is the global batch's."""
     if scale is None:
         scale = 2 * math.pi
     x_embed = pos[:, :, 0].float()

@@ -15,8 +15,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import comm
 from .layers import (Dropout, DropPath, LayerNormFp32, Linear, check_remat,
-                     remat_call)
+                     remat_call, row_parallel)
 from .mixres_common import (
     OverlapPatchEmbedding,
     grid_positions,
@@ -45,7 +46,10 @@ class DWConv(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """fc1 -> (dwconv) -> exact GELU -> dropout -> fc2 -> dropout."""
+    """fc1 -> (dwconv) -> exact GELU -> dropout -> fc2 -> dropout.
+    Tensor-parallel when ``tp_group`` is set (``parallel/tp.py``): fc1 and
+    the depthwise conv hold this rank's block of the hidden channels, fc2
+    the matching input columns."""
 
     def __init__(self, dim, hidden_dim, dropout=0.0, dw_conv=True,
                  out_dim=None, compute_dtype=torch.float32):
@@ -54,18 +58,24 @@ class FeedForward(nn.Module):
         self.dwconv = DWConv(hidden_dim, compute_dtype) if dw_conv else None
         self.fc2 = Linear(hidden_dim, out_dim or dim, compute_dtype)
         self.drop = Dropout(dropout)
+        self.tp_group = None
 
     def forward(self, x, h: int, w: int):
+        if self.tp_group is not None:
+            x = comm.copy_to_model(x, self.tp_group)
         x = self.fc1(x)
         if self.dwconv is not None:
             x = self.dwconv(x, h, w)
-        x = self.drop(F.gelu(x))
-        return self.drop(self.fc2(x))
+        x = self.drop(F.gelu(x), self.tp_group)
+        return self.drop(row_parallel(self.fc2, x, self.tp_group))
 
 
 class Attention(nn.Module):
     """Dense multi-head self-attention: q.k in the compute dtype, scaled
-    after the product, softmax in f32."""
+    after the product, softmax in f32. Tensor-parallel when ``tp_group`` is
+    set (``parallel/tp.py``): ``heads`` local heads, whose rows of each of
+    q, k and v this rank's ``qkv`` holds, and proj's matching input
+    columns."""
 
     def __init__(self, dim, heads, dropout=0.0, compute_dtype=torch.float32):
         super().__init__()
@@ -74,18 +84,22 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, compute_dtype)
         self.proj = Linear(dim, dim, compute_dtype)
         self.drop = Dropout(dropout)
+        self.tp_group = None
 
     def forward(self, x):
-        b, n, c = x.shape
+        if self.tp_group is not None:
+            x = comm.copy_to_model(x, self.tp_group)
+        b, n, _ = x.shape
         h = self.heads
-        c_ = c // h
+        c_ = self.qkv.weight.shape[0] // (3 * h)
+        c = h * c_  # this rank's channels
         qkv = self.qkv(x).reshape(b, n, 3, h, c_).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # b h n c_
         attn = torch.matmul(q, k.transpose(-1, -2)) * c_**-0.5
         attn = torch.softmax(attn.float(), dim=-1).to(self.compute_dtype)
-        out = torch.matmul(self.drop(attn), v)
+        out = torch.matmul(self.drop(attn, self.tp_group, dim=1), v)
         out = out.transpose(1, 2).reshape(b, n, c)
-        return self.drop(self.proj(out))
+        return self.drop(row_parallel(self.proj, out, self.tp_group))
 
 
 class Block(nn.Module):

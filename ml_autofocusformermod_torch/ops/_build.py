@@ -8,12 +8,17 @@ builds all sources at once, one ``nvcc`` process per source, all started
 together. Libraries land in ``csrc/build/`` (listed in ``.gitignore``)
 under a name that carries a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
-unchanged one is reused. A failed build raises.
+unchanged one is reused. A failed build raises. Processes that start cold
+together (the ranks of one host) take turns on a file lock in
+``csrc/build/``: the first builds, the others wait and find the libraries
+built.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -22,7 +27,7 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["SOURCES", "build_all", "library"]
+__all__ = ["SOURCES", "build_all", "compile_all", "library"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -55,14 +60,31 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}.{digest[:16]}.so"
 
 
-def build_all() -> Dict[str, dict]:
-    """Build (or reuse) every kernel library and load it.
+@contextlib.contextmanager
+def _locked(path: Path):
+    """Hold an exclusive ``flock`` on ``path`` (created if absent)."""
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def compile_all() -> Dict[str, dict]:
+    """Build every kernel library that is not built yet, one ``nvcc`` per
+    source, all started together, holding the build directory's lock.
 
     Returns ``{name: {"seconds": float, "cached": bool, "log": str}}``;
     ``log`` holds nvcc's output, including ``ptxas -v`` register and
     shared-memory counts.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _locked(BUILD_DIR / ".lock"):
+        return _compile_missing()
+
+
+def _compile_missing() -> Dict[str, dict]:
     info: Dict[str, dict] = {}
     procs = {}
     for name in SOURCES:
@@ -88,6 +110,13 @@ def build_all() -> Dict[str, dict]:
         os.replace(tmp, target)
     if failed:
         raise RuntimeError("CUDA kernel build failed\n" + "\n".join(failed))
+    return info
+
+
+def build_all() -> Dict[str, dict]:
+    """Build (or reuse) every kernel library (:func:`compile_all`) and load
+    it; returns :func:`compile_all`'s record."""
+    info = compile_all()
     for name in SOURCES:
         if name not in _LIBS:
             _LIBS[name] = ctypes.CDLL(str(_target(name)))

@@ -49,7 +49,8 @@ from .cluster_gather import cluster_token_index, gather_clusters
 __all__ = ["fused_cluster_attention", "cluster_attention_reference",
            "cluster_attention_backward",
            "cluster_attention_backward_reference", "cluster_attention_forward",
-           "offset_features", "drop_keep", "draw_drop_seed", "saved_mode",
+           "offset_features", "drop_keep", "draw_drop_seed", "head_offset_seed",
+           "saved_mode",
            "TILE", "TileMeta", "tile_metadata", "constant_tile_metadata",
            "union_rows", "BLANK_COL"]
 
@@ -57,6 +58,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64  # query rows per kernel tile, csrc/cluster_attention_tile.cuh::kTile
 BLANK_COL = 65535  # the hash's kv column of the blank slot
 _MASK32 = 0xFFFFFFFF
+# the hash's multipliers of the image and head index
+_IMG_MUL = -1640531535 & _MASK32
+_HEAD_MUL = -2048144777 & _MASK32
 
 
 def saved_mode() -> bool:
@@ -94,8 +98,7 @@ def drop_keep(seed, img, head, rows, cols, rate):
     img, head, rows, cols = (t.long() for t in as_t)
     # int32 wrap-around as uint32 in int64: every step masked to 32 bits
     x = (rows * 65536 + cols + (int(seed) & _MASK32)
-         + img * (-1640531535 & _MASK32)
-         + head * (-2048144777 & _MASK32)) & _MASK32
+         + img * _IMG_MUL + head * _HEAD_MUL) & _MASK32
     x = x ^ (x >> 16)
     x = _mul32(x, 2146121005)
     x = x ^ (x >> 15)
@@ -113,6 +116,14 @@ def draw_drop_seed(generator: Optional[torch.Generator] = None) -> int:
     default CPU generator when None): a host integer, so the kernels take
     it by value, and the same seed on every device."""
     return int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+
+
+def head_offset_seed(seed: int, head0: int) -> int:
+    """The seed whose masks at head ``h`` are :func:`drop_keep`'s of
+    ``seed`` at head ``head0 + h``: the hash adds ``head * _HEAD_MUL`` to
+    the seed before it mixes, so a tensor-parallel rank that holds the
+    heads from ``head0`` on drops them as one process does."""
+    return (int(seed) + head0 * _HEAD_MUL) & _MASK32
 
 
 def _drop_planes(ncc, cs, num_heads, drop, device, img0=0):

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,7 +102,8 @@ def _device_anchor_tables(h: int, w: int, k: int, device: torch.device):
     return _DEVICE_TABLES[key]
 
 
-def space_filling_cluster(pos: torch.Tensor, m: int, h: int, w: int):
+def space_filling_cluster(pos: torch.Tensor, m: int, h: int, w: int,
+                          batch_max: Optional[Callable] = None):
     """Balanced clustering along the scanline curve (reorder mode).
 
     ``n`` tokens are split into ``k = ceil(n/m)`` contiguous-in-curve-order
@@ -110,7 +111,10 @@ def space_filling_cluster(pos: torch.Tensor, m: int, h: int, w: int):
     trailing slots of the last cluster are padding, flagged by
     ``cluster_mask`` (1 = valid). The JAX function's defaults
     (``no_reorder=False, sf_type='', use_anchor=True``) are the only route
-    the AFF model takes, and the only one ported.
+    the AFF model takes, and the only one ported. The sort key scales by
+    the max of the distance ratio over the whole batch; ``batch_max``, when
+    given, takes that max (a 0-d tensor) of this process's rows to the
+    global batch's (the model passes the data ranks' all-reduce).
 
     Returns:
         ``(pos_sorted (b,n,2), cluster_mean_pos (b,k,2), member_idx (b,k,m),
@@ -130,7 +134,10 @@ def space_filling_cluster(pos: torch.Tensor, m: int, h: int, w: int):
     dist_next = ((pos - next_means[assign]) ** 2).sum(-1)
     dist_ratio = dist_prev / (dist_next + 1e-5)
     # the max runs over the WHOLE batch, not per image (sfc.py:348)
-    key = assign.float() * (dist_ratio.max() + 1) + dist_ratio
+    ratio_max = dist_ratio.max()
+    if batch_max is not None:
+        ratio_max = batch_max(ratio_max)
+    key = assign.float() * (ratio_max + 1) + dist_ratio
     pos_ranking = torch.argsort(key, dim=1, stable=True)  # b x n
 
     pos_sorted = torch.gather(pos, 1, pos_ranking[..., None].expand(b, n, d))

@@ -1,0 +1,235 @@
+"""The collectives of the data and model axes, differentiable where the
+model needs a gradient through them.
+
+* :func:`all_reduce`: the sum with its gradient, the max without one;
+* Megatron's f and g pair: :func:`copy_to_model` (identity forward,
+  all-reduce backward) at the input of a column-parallel layer and
+  :func:`reduce_from_model` (all-reduce forward, identity backward) after a
+  row-parallel one;
+* :func:`all_gather` along a dimension, and :func:`mirror`, the tensor of
+  the mirror rank ``W-1-r`` (mixup's partner rows);
+* :func:`all_reduce_mean_`, the data-parallel mean of the gradients in a
+  few flat buckets.
+
+Every one returns its input (or does nothing) when the group is None or
+has one rank, so a single process runs exactly the ops it runs without
+this module.
+
+Routes: NCCL, and gloo on CPU tensors, use the native collectives. Gloo
+on CUDA tensors implements only ``broadcast`` and ``all_reduce``, so there
+an all-gather is an all-reduce sum of a zero buffer in which each rank
+fills its own slot (exact: the other slots add zeros); half-precision
+tensors travel as float32 on that route. The route is chosen by the
+backend's name, never after a failure.
+
+The helpers ``data_*`` and :func:`global_draw` read the ambient mesh
+(:func:`.mesh.current`): the model's batch-wide reductions and per-image
+draws call them unconditionally.
+
+:data:`STATS` counts the collectives and the host seconds spent in them.
+With ``MLAFF_COMM_TIMING=1`` in the environment each collective on a CUDA
+tensor first waits for the device (``torch.cuda.synchronize``), so the
+seconds are the collective's own and not the wait for the work that
+produces its input; that costs the overlap, so it is off by default.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Iterable, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from . import mesh as mesh_lib
+
+__all__ = ["size", "rank", "all_reduce", "copy_to_model", "reduce_from_model",
+           "all_gather", "mirror", "all_reduce_mean_", "data_coords",
+           "data_all_reduce", "global_draw", "STATS"]
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+_BUCKET_BYTES = 32 << 20
+_TIMING = os.environ.get("MLAFF_COMM_TIMING") == "1"
+STATS = {"calls": 0, "seconds": 0.0}
+
+
+def _collective(fn, t: torch.Tensor, *args, **kwargs):
+    """``fn(*args, **kwargs)``, counted in :data:`STATS`."""
+    if _TIMING and t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    t0 = time.perf_counter()
+    fn(*args, **kwargs)
+    STATS["calls"] += 1
+    STATS["seconds"] += time.perf_counter() - t0
+
+
+def size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def _route(group, t: torch.Tensor) -> str:
+    """``reduce`` where the backend lacks the native op for ``t`` (gloo on
+    a CUDA tensor), else ``native``."""
+    return ("reduce" if t.is_cuda and dist.get_backend(group) == "gloo"
+            else "native")
+
+
+def _reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """In-place all-reduce of a fresh contiguous tensor, returned."""
+    _collective(dist.all_reduce, t, t, op=_OPS[op], group=group)
+    return t
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce(x.detach().clone().contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # the output is the same on every rank and each rank's loss reads
+        # it: its gradient is the sum over ranks
+        return _reduce(grad.contiguous().clone(), ctx.group), None
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """Sum or max of ``x`` over ``group``. The sum carries its gradient
+    (the sum of the ranks' gradients); the max carries none (it only ever
+    feeds the clustering's sort key)."""
+    if size(group) == 1:
+        return x
+    if op == "max":
+        return _reduce(x.detach().clone().contiguous(), group, "max")
+    return _AllReduceSum.apply(x, group)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce(grad.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's f: ``x`` as it is; its gradient summed over ``group``."""
+    if size(group) == 1:
+        return x
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's g: ``x`` summed over ``group`` (in float32: gloo takes no
+    bfloat16, and the partial sums keep their precision), returned in
+    ``x``'s dtype; the gradient passes as it is."""
+    if size(group) == 1:
+        return x
+    return _ReduceFromModel.apply(x.float(), group).to(x.dtype)
+
+
+def _gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """``(W,) + x.shape``: every rank's ``x`` in rank order."""
+    w, r = size(group), rank(group)
+    if _route(group, x) == "reduce":
+        wide = x.dtype in (torch.float16, torch.bfloat16)
+        src = x.float() if wide else x
+        buf = src.new_zeros((w,) + tuple(x.shape))
+        buf[r] = src
+        return _reduce(buf, group).to(x.dtype)
+    out = x.new_empty((w,) + tuple(x.shape))
+    _collective(dist.all_gather, x, list(out.unbind(0)), x.contiguous(),
+                group=group)
+    return out
+
+
+@torch.no_grad()
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` (equal shapes) concatenated along ``dim`` in rank
+    order; no gradient."""
+    if size(group) == 1:
+        return x
+    return torch.cat(list(_gather_rows(x, group).unbind(0)), dim=dim)
+
+
+@torch.no_grad()
+def mirror(x: torch.Tensor, group) -> torch.Tensor:
+    """The ``x`` of rank ``W-1-r`` of ``group`` (``x`` itself on one
+    rank); no gradient."""
+    w = size(group)
+    if w == 1:
+        return x
+    return _gather_rows(x, group)[w - 1 - rank(group)]
+
+
+@torch.no_grad()
+def all_reduce_mean_(tensors: Iterable[torch.Tensor], group) -> None:
+    """Replace each tensor by its mean over ``group``, in flat buckets of
+    about 32 MiB per dtype and device."""
+    w = size(group)
+    if w == 1:
+        return
+    buckets: dict = {}
+    for t in tensors:
+        key = (t.dtype, t.device)
+        cur = buckets.setdefault(key, [[]])
+        if (cur[-1] and sum(x.numel() for x in cur[-1]) * t.element_size()
+                >= _BUCKET_BYTES):
+            cur.append([])
+        cur[-1].append(t)
+    for lists in buckets.values():
+        for bucket in lists:
+            flat = torch.cat([t.reshape(-1) for t in bucket])
+            _reduce(flat, group)
+            flat /= w
+            off = 0
+            for t in bucket:
+                t.copy_(flat[off:off + t.numel()].view_as(t))
+                off += t.numel()
+
+
+# ------------------------------------------------------ the ambient mesh ----
+
+def data_coords() -> Tuple[int, int, Optional[object]]:
+    """``(data rank, data size, data group)`` of the ambient mesh;
+    ``(0, 1, None)`` without one."""
+    m = mesh_lib.current()
+    if m is None or m.data == 1:
+        return 0, 1, None
+    return m.data_rank, m.data, m.data_group
+
+
+def data_all_reduce(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """:func:`all_reduce` over the ambient mesh's data axis: a batch-wide
+    reduction over the global batch."""
+    return all_reduce(x, data_coords()[2], op)
+
+
+def global_draw(draw: Callable[[int], torch.Tensor], b: int) -> torch.Tensor:
+    """A per-image draw for this data rank's ``b`` rows: ``draw(b)`` on one
+    rank; with W data ranks ``draw(b * W)`` (the global batch's draw, the
+    same on every rank) sliced to this rank's rows, so a W-rank step draws
+    what the one-process step of the global batch draws."""
+    r, w, _ = data_coords()
+    if w == 1:
+        return draw(b)
+    return draw(b * w)[r * b:(r + 1) * b]
+

@@ -11,7 +11,7 @@ numbers.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,6 +79,7 @@ def mixup_cutmix(
     prob: float = 1.0,
     switch_prob: float = 0.5,
     smoothing: float = 0.1,
+    partner: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batch-mode mixup/cutmix (timm ``Mixup(mode='batch')``, JAX package
     ``losses.py:62-117``).
@@ -87,8 +88,12 @@ def mixup_cutmix(
     batch; when both alphas are on, a coin picks mixup or cutmix. Returns
     the mixed NCHW images and soft targets (already label-smoothed). The
     scalar draws come from ``gen`` (a CPU generator), so the images stay on
-    their device.
+    their device. ``partner`` maps a batch tensor to its partner rows
+    (default ``flip(0)``); under data parallelism it returns the mirror
+    data rank's rows reversed, as JAX pairs ``images[::-1]`` of the global
+    batch (``losses.py:96``).
     """
+    partner = partner or (lambda t: t.flip(0))
     b, _, h, w = images.shape
     use_mix, use_cut = mixup_alpha > 0.0, cutmix_alpha > 0.0
     target = smooth_one_hot(labels, num_classes, smoothing)
@@ -99,7 +104,7 @@ def mixup_cutmix(
     do_cut = (_uniform(gen) < switch_prob) if (use_mix and use_cut) else use_cut
     alpha = cutmix_alpha if do_cut else mixup_alpha
     lam = _beta(gen, alpha) if apply else 1.0
-    flipped = images.flip(0)
+    flipped = partner(images)
     if do_cut:
         y1, y2, x1, x2 = _rand_bbox(gen, h, w, lam)
         mixed = images.clone()
@@ -107,5 +112,5 @@ def mixup_cutmix(
         lam = 1.0 - (y2 - y1) * (x2 - x1) / float(h * w)
     else:
         mixed = images * lam + flipped * (1.0 - lam)
-    target = target * lam + target.flip(0) * (1.0 - lam)
+    target = target * lam + partner(target) * (1.0 - lam)
     return mixed.to(images.dtype), target

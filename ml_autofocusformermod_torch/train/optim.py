@@ -19,14 +19,25 @@ float32, rather than wrapping ``torch.optim``:
 Parameters are updated in place. Skipping a step whose gradients are not
 finite is the trainer's job: it then does not call :meth:`Optimizer.step`,
 so counts and moments stay as they were.
+
+With a ``layout`` (``parallel/zero.py::Layout``) the parameters may be this
+rank's tensor-parallel blocks: the global norm counts each sharded leaf's
+squares once over the model axis (``parallel/tp.py::global_norm``). Under
+ZeRO-1 the moments of the parameters in ``layout.zero`` hold this data
+rank's block only; each rank computes its block of the update, and the
+update is all-gathered before it is applied, so the parameters get the
+same values, element for element, as without ZeRO-1.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from ..parallel import tp as tp_lib
+from ..parallel import zero as zero_lib
 
 __all__ = ["Optimizer", "build_optimizer", "no_weight_decay_mask",
            "global_norm", "scale_base_lr"]
@@ -54,7 +65,8 @@ class Optimizer:
     def __init__(self, params: Mapping[str, torch.Tensor], name: str,
                  schedule: Callable, weight_decay: float, clip: float,
                  betas=(0.9, 0.999), eps: float = 1e-8,
-                 momentum: float = 0.9, accumulation_steps: int = 1):
+                 momentum: float = 0.9, accumulation_steps: int = 1,
+                 layout: Optional["zero_lib.Layout"] = None):
         self.name = name.lower()
         if self.name not in ("adamw", "sgd"):
             raise NotImplementedError(f"Unknown optimizer: {name}")
@@ -67,15 +79,34 @@ class Optimizer:
         self.momentum = momentum
         self.every_k = max(int(accumulation_steps), 1)
         self.decay_mask = no_weight_decay_mask(self.params)
+        self.layout = layout
+        self.zero = layout.zero if layout is not None else {}
         zeros = lambda: {k: torch.zeros_like(p) for k, p in self.params.items()}
         self.state = {"count": 0, "sched_count": 0, "mini_step": 0,
                       "gradient_step": 0}
         if self.name == "adamw":
-            self.state.update(mu=zeros(), nu=zeros())
+            blocks = lambda: {k: torch.zeros_like(self.zero_block(k, p))
+                              for k, p in self.params.items()}
+            self.state.update(mu=blocks(), nu=blocks())
         else:
             self.state.update(trace=zeros())
         if self.every_k > 1:
             self.state["acc"] = zeros()
+
+    def zero_block(self, k: str, t: torch.Tensor) -> torch.Tensor:
+        """``t``'s ZeRO-1 block on this data rank (``t`` itself for a
+        parameter that is not cut)."""
+        if k not in self.zero:
+            return t
+        return zero_lib.block(t, self.zero[k], self.layout.mesh)
+
+    def global_norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of the full gradients of which ``grads`` holds
+        this rank's blocks."""
+        if self.layout is not None and self.layout.tp:
+            return tp_lib.global_norm(grads, self.layout.tp,
+                                      self.layout.model_group)
+        return global_norm(grads.values())
 
     # --------------------------------------------------------------- state
     def state_dict(self) -> dict:
@@ -110,7 +141,7 @@ class Optimizer:
 
     def _inner(self, grads: Mapping[str, torch.Tensor]) -> None:
         if self.clip and self.clip > 0:
-            norm = global_norm(grads.values())
+            norm = self.global_norm(grads)
             if not bool(norm < self.clip):
                 grads = {k: (g / norm) * self.clip for k, g in grads.items()}
         lr = self.schedule(self.state["sched_count"])
@@ -119,14 +150,23 @@ class Optimizer:
             bc1 = _bias_correction(self.b1, self.state["count"])
             bc2 = _bias_correction(self.b2, self.state["count"])
             mu, nu = self.state["mu"], self.state["nu"]
+            cut = {}
             for k, p in self.params.items():
-                g = grads[k]
+                g, pb = self.zero_block(k, grads[k]), self.zero_block(k, p)
                 mu[k].copy_((1 - self.b1) * g + self.b1 * mu[k])
                 nu[k].copy_((1 - self.b2) * (g * g) + self.b2 * nu[k])
                 u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)
                 if self.decay_mask[k]:
-                    u = u + self.weight_decay * p
-                p.add_(u * -lr)
+                    u = u + self.weight_decay * pb
+                if k in self.zero:
+                    cut[k] = u * -lr
+                else:
+                    p.add_(u * -lr)
+            full = (zero_lib.gather_update(cut, self.zero,
+                                           self.layout.data_group)
+                    if cut else {})
+            for k, upd in full.items():
+                self.params[k].add_(upd)
         else:
             trace = self.state["trace"]
             for k, p in self.params.items():
@@ -139,15 +179,17 @@ class Optimizer:
         self.state["sched_count"] += 1
 
 
-def build_optimizer(config, schedule: Callable, model) -> Optimizer:
-    """The optimizer of ``config.TRAIN`` over ``model.named_parameters()``."""
+def build_optimizer(config, schedule: Callable, model,
+                    layout: Optional["zero_lib.Layout"] = None) -> Optimizer:
+    """The optimizer of ``config.TRAIN`` over ``model.named_parameters()``
+    (this rank's blocks under ``layout``)."""
     t = config.TRAIN
     return Optimizer(
         dict(model.named_parameters()), t.OPTIMIZER.NAME, schedule,
         weight_decay=t.WEIGHT_DECAY, clip=t.CLIP_GRAD,
         betas=tuple(t.OPTIMIZER.BETAS), eps=t.OPTIMIZER.EPS,
         momentum=t.OPTIMIZER.MOMENTUM,
-        accumulation_steps=t.ACCUMULATION_STEPS,
+        accumulation_steps=t.ACCUMULATION_STEPS, layout=layout,
     )
 
 

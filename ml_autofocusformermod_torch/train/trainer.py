@@ -10,6 +10,20 @@ whose gradients are not finite leaves the parameters, the optimizer's
 counts and moments as they were, but ``step`` still advances
 (``trainer.py:130-145``). Compute-dtype semantics are the model's: float32
 parameters and explicit casts, no autocast and no GradScaler.
+
+Under data parallelism (a ``layout`` whose mesh has data ranks) the step
+computes what the one-process step of the global batch computes, as JAX's
+jitted step on a batch-sharded mesh does: mixup pairs each row with its
+partner in the global batch (on the mirror data rank), the gradients are
+averaged over the data ranks after the backward, the logged loss is the
+global mean, and the evaluation sums run over every data rank. Per-image
+draws (DropPath, MaskFiner's upsampling masks) are the global batch's,
+sliced to the rank's rows; element-wise Dropout then draws from its own
+stream per data rank (seeded by the seed and the data rank), not from the
+one-process stream. Under tensor parallelism alone the step draws what one
+process draws, Dropout too: a layer split over the model axis draws the
+mask of its whole activation and keeps its block, and the attention
+kernels' dropout seed is offset to the rank's first head.
 """
 
 from __future__ import annotations
@@ -22,13 +36,16 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import ClusterAttention, Dropout, DropPath
+from ..parallel import comm
+from ..parallel import mesh as mesh_lib
+from ..parallel import zero as zero_lib
 from .losses import mixup_cutmix, smooth_one_hot, soft_target_cross_entropy
-from .optim import Optimizer, build_optimizer, global_norm
+from .optim import Optimizer, build_optimizer
 from .schedulers import build_scheduler
 
 __all__ = ["TrainState", "create_train_state", "apply_gradients",
-           "model_loss", "make_train_step", "make_eval_step", "throughput",
-           "ema_tensors"]
+           "model_loss", "check_mesh", "make_train_step", "make_eval_step",
+           "throughput", "ema_tensors"]
 
 
 def ema_tensors(model) -> Dict[str, torch.Tensor]:
@@ -46,7 +63,9 @@ class TrainState:
     model's device) drives Dropout and DropPath; ``mix_generator`` (CPU)
     drives mixup; ``upsample_generator`` (CPU) draws a MaskFiner model's
     upsampling masks in training; ``attn_drop_generator`` (CPU) draws the
-    seeds of the attention kernels' dropout."""
+    seeds of the attention kernels' dropout. ``layout`` is how this rank
+    holds the state across processes (None: one process). Under ZeRO-1
+    ``ema`` holds this data rank's block of each cut parameter."""
 
     model: torch.nn.Module
     optimizer: Optimizer
@@ -56,24 +75,36 @@ class TrainState:
     attn_drop_generator: torch.Generator
     step: int = 0
     ema: Optional[Dict[str, torch.Tensor]] = field(default=None)
+    layout: Optional[zero_lib.Layout] = None
 
 
 def create_train_state(config, model, n_steps_per_epoch: int = 1000,
-                       seed: Optional[int] = None
+                       seed: Optional[int] = None,
+                       layout: Optional[zero_lib.Layout] = None
                        ) -> Tuple[TrainState, Callable]:
     """``(state, schedule)`` for ``model``: the optimizer of
     ``config.TRAIN``, the EMA copy when ``TRAIN.USE_EMA``, and generators
     seeded from ``seed`` (default ``config.SEED``), handed to every
     Dropout and DropPath, to a MaskFiner model's upsampling masks and to
-    every ClusterAttention's dropout seeds."""
+    every ClusterAttention's dropout seeds. ``layout``: this rank's share
+    of a model sharded across processes (``parallel/zero.py::
+    make_layout``); with more than one data rank Dropout draws from a
+    generator of its own, seeded by ``seed`` and the data rank (the model
+    ranks of a data rank share it)."""
     seed = config.SEED if seed is None else seed
     schedule = build_scheduler(config, n_steps_per_epoch)
-    optimizer = build_optimizer(config, schedule, model)
+    optimizer = build_optimizer(config, schedule, model, layout)
     device = next(model.parameters()).device
     drop_gen = torch.Generator(device=device).manual_seed(seed)
+    elem_gen = drop_gen
+    if layout is not None and layout.mesh.data > 1:
+        elem_gen = torch.Generator(device=device).manual_seed(
+            seed * 1000003 + layout.mesh.data_rank + 1)
     for mod in model.modules():
-        if isinstance(mod, (Dropout, DropPath)):
+        if isinstance(mod, DropPath):
             mod.generator = drop_gen
+        elif isinstance(mod, Dropout):
+            mod.generator = elem_gen
     up_gen = torch.Generator().manual_seed(seed + 1)
     if hasattr(model, "upsample_generator"):
         model.upsample_generator = up_gen
@@ -83,10 +114,11 @@ def create_train_state(config, model, n_steps_per_epoch: int = 1000,
             mod.attn_drop_generator = attn_gen
     ema = None
     if config.TRAIN.USE_EMA:
-        ema = {k: t.detach().clone() for k, t in ema_tensors(model).items()}
+        ema = {k: optimizer.zero_block(k, t.detach()).clone()
+               for k, t in ema_tensors(model).items()}
     state = TrainState(model, optimizer, drop_gen,
                        torch.Generator().manual_seed(seed), up_gen, attn_gen,
-                       ema=ema)
+                       ema=ema, layout=layout)
     return state, schedule
 
 
@@ -95,15 +127,16 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor],
     """Everything of a train step after the backward
     (``trainer.py:130-168``): the global norm of ``grads``, the optimizer
     step when it is finite, the EMA on accumulation boundaries, ``step``
-    + 1. Returns ``(grad_norm, finite)``."""
-    grad_norm = global_norm(grads.values())
+    + 1. Returns ``(grad_norm, finite)``. ``grads`` are this rank's
+    blocks of the full (data-averaged) gradients."""
+    grad_norm = state.optimizer.global_norm(grads)
     finite = bool(torch.isfinite(grad_norm))
     if finite:
         state.optimizer.step(grads)
     if state.ema is not None and (state.step + 1) % accum == 0:
         with torch.no_grad():
             for k, t in ema_tensors(state.model).items():
-                e = state.ema[k]
+                e, t = state.ema[k], state.optimizer.zero_block(k, t)
                 e.copy_(e * ema_decay + t.to(e.dtype) * (1.0 - ema_decay))
     state.step += 1
     return grad_norm, finite
@@ -118,10 +151,25 @@ def model_loss(outputs, target: torch.Tensor) -> torch.Tensor:
     return soft_target_cross_entropy(outputs, target)
 
 
+def check_mesh(layout: Optional[zero_lib.Layout]) -> None:
+    """Raise unless the ambient mesh, which the model's batch-wide
+    reductions read, is ``layout``'s (none, or one of a single rank,
+    without a layout)."""
+    m = mesh_lib.current()
+    ok = (m is layout.mesh if layout is not None
+          else m is None or m.world == 1)
+    if not ok:
+        raise RuntimeError(
+            f"the installed mesh {m} is not the train state's layout's "
+            f"({layout.mesh if layout is not None else None}): "
+            f"parallel/zero.py::make_layout installs it")
+
+
 def make_train_step(config, state: TrainState, schedule: Callable) -> Callable:
     """``train_step(images, labels) -> metrics`` over ``state``:
     ``loss``, ``grad_norm`` (before clipping), ``grads_finite`` and ``lr``
-    (the schedule at this optimizer step)."""
+    (the schedule at this optimizer step). Each step first checks that the
+    ambient mesh is the state's layout's (:func:`check_mesh`)."""
     num_classes = config.MODEL.NUM_CLASSES
     smoothing = config.MODEL.LABEL_SMOOTHING
     mixup_on = config.AUG.MIXUP > 0 or config.AUG.CUTMIX > 0
@@ -129,15 +177,23 @@ def make_train_step(config, state: TrainState, schedule: Callable) -> Callable:
     accum = max(config.TRAIN.ACCUMULATION_STEPS, 1)
     model = state.model
     params = dict(model.named_parameters())
+    data_group = state.layout.data_group if state.layout else None
+    data = comm.size(data_group)
+
+    def partner(t: torch.Tensor) -> torch.Tensor:
+        # the rows of t's global batch, reversed, that meet this rank's
+        return comm.mirror(t, data_group).flip(0)
 
     def train_step(images: torch.Tensor, labels: torch.Tensor) -> dict:
+        check_mesh(state.layout)
         model.train()
         if mixup_on:
             images, target = mixup_cutmix(
                 state.mix_generator, images, labels, num_classes,
                 mixup_alpha=config.AUG.MIXUP, cutmix_alpha=config.AUG.CUTMIX,
                 prob=config.AUG.MIXUP_PROB,
-                switch_prob=config.AUG.MIXUP_SWITCH_PROB, smoothing=smoothing)
+                switch_prob=config.AUG.MIXUP_SWITCH_PROB, smoothing=smoothing,
+                partner=partner)
         else:
             target = smooth_one_hot(labels, num_classes, smoothing)
         for p in params.values():
@@ -146,9 +202,15 @@ def make_train_step(config, state: TrainState, schedule: Callable) -> Callable:
         loss.backward()
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in params.items()}
+        # the mean of the ranks' gradients of their batch means: the
+        # gradient of the global batch's mean
+        comm.all_reduce_mean_(grads.values(), data_group)
         lr = schedule(state.step // accum)
         grad_norm, finite = apply_gradients(state, grads, accum, ema_decay)
-        return {"loss": loss.detach(), "grad_norm": grad_norm.detach(),
+        loss = loss.detach()
+        if data > 1:
+            loss = comm.all_reduce(loss, data_group) / data
+        return {"loss": loss, "grad_norm": grad_norm.detach(),
                 "grads_finite": finite, "lr": lr}
 
     return train_step
@@ -158,8 +220,9 @@ def make_eval_step(config, model) -> Callable:
     """(images, labels[, valid]) -> partial sums for the accuracy/loss
     meters: ``loss_sum``, ``top1``, ``top5``, ``count`` over the rows where
     ``valid`` (default: every row), plain CE, as the JAX package's
-    ``make_eval_step`` (``trainer.py:191-220``). Puts the model in eval
-    mode."""
+    ``make_eval_step`` (``trainer.py:191-220``); under data parallelism
+    summed over the data ranks (the ambient mesh's), as JAX's sums run over
+    the whole mesh. Puts the model in eval mode."""
 
     @torch.no_grad()
     def eval_step(images: torch.Tensor, labels: torch.Tensor,
@@ -175,12 +238,18 @@ def make_eval_step(config, model) -> Callable:
         per_sample = F.cross_entropy(logits, labels, reduction="none")
         # lower class index first among equal logits, as jnp.argsort
         top = torch.sort(-logits, dim=-1, stable=True)[1][:, :5]
-        return {
+        out = {
             "loss_sum": (per_sample * valid).sum(),
             "top1": ((top[:, 0] == labels) & valid).sum(),
             "top5": ((top == labels[:, None]).any(-1) & valid).sum(),
             "count": valid.sum(),
         }
+        if comm.data_coords()[1] > 1:
+            sums = comm.data_all_reduce(
+                torch.stack([v.double() for v in out.values()]))
+            out = {k: (s if k == "loss_sum" else s.long())
+                   for k, s in zip(out, sums)}
+        return out
 
     return eval_step
 

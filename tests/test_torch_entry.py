@@ -6,8 +6,9 @@
 * importing the whole port (and ``chip_smoke.py``) loads no ``jax*`` and no
   ``ml_autofocusformermod_tpu*`` module;
 * entry points refuse CUDA when there is no GPU instead of running on CPU;
-* the JAX package's settings the port cannot honour on one card (the mesh
-  keys, ZeRO-1, ``TPU.USE_PALLAS: false`` on the card) raise.
+* the JAX package's settings the port cannot honour (sequence
+  parallelism, a mesh that does not match the processes, a batch the data
+  size does not divide, ``TPU.USE_PALLAS: false`` on the card) raise.
 """
 
 import math
@@ -99,7 +100,8 @@ def test_import_hygiene():
         "        'maskfiner_ot', 'maskfiner_ud')}\n"
         "new |= {'ml_autofocusformermod_torch.' + m for m in\n"
         "        ('data.imagenet', 'data.transforms', 'data.native_jpeg',\n"
-        "         'data.prefetch', 'ckpt.pth_import')}\n"
+        "         'data.prefetch', 'ckpt.pth_import', 'parallel.mesh',\n"
+        "         'parallel.comm', 'parallel.tp', 'parallel.zero')}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'ml_autofocusformermod_tpu'))\n"
@@ -136,20 +138,57 @@ def test_unknown_model_type_raises():
 
 @pytest.mark.parametrize("opts", [["TPU.MESH_MODEL", "2"],
                                   ["TPU.MESH_SEQ", "4"],
-                                  ["TPU.ZERO1", "True"],
+                                  ["TPU.ZERO1", "True", "TPU.MESH_DATA", "2"],
                                   ["TPU.MESH_DATA", "8"]])
 def test_switches_the_port_cannot_honour_raise(tmp_path, opts):
-    """The mesh keys and ZeRO-1 raise in ``build_model`` and in ``main``,
-    naming ROADMAP A11, instead of being ignored."""
+    """Sequence parallelism (ROADMAP A11b), and a mesh whose sizes do not
+    multiply to the processes (one here), raise in ``build_model`` and in
+    ``main`` instead of being ignored. (Tensor parallelism, ZeRO-1 and data
+    parallelism on a matching world run since ROADMAP A11a:
+    ``test_torch_parallel*.py``.)"""
+    match = "ROADMAP A11b" if "TPU.MESH_SEQ" in opts else "!= 1 processes"
     c = load_config(os.path.join(PORT_CFG, "aff_mini.yaml"),
                     opts=TINY_OPTS + opts)
-    with pytest.raises(ValueError, match="ROADMAP A11"):
+    with pytest.raises(ValueError, match=match):
         build_model(c, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP A11"):
+    with pytest.raises(ValueError, match=match):
         port_main.main(["--cfg", os.path.join(PORT_CFG, "aff_mini.yaml"),
                         "--throughput", "--device", "cpu",
                         "--data-path", str(tmp_path / "no_dataset"),
                         "--opts", *TINY_OPTS, *opts])
+
+
+@pytest.mark.parametrize("world,opts,match", [
+    (2, ["TPU.MESH_DATA", "4"], "!= 2 processes"),
+    (4, ["TPU.MESH_MODEL", "3"], "does not divide"),
+    (2, ["DATA.BATCH_SIZE", "3"], "divisible by the data size 2"),
+    (2, ["TPU.MESH_MODEL", "2", "DATA.BATCH_SIZE", "3"], None),
+    (1, ["TPU.MESH_DATA", "-1", "TPU.ZERO1", "True"], None),
+    (1, ["TPU.MESH_DATA", "1", "TPU.MESH_MODEL", "1"], None)])
+def test_mesh_checks_against_the_world(world, opts, match):
+    """The mesh keys are checked against the number of processes, and the
+    per-rank batch against the data size (JAX ``main.py:162-166``); a mesh
+    that matches passes (at ``model`` 2 the data size is 1, so any batch
+    divides)."""
+    c = load_config(os.path.join(PORT_CFG, "aff_mini.yaml"),
+                    opts=TINY_OPTS + opts)
+    if match is None:
+        check_switches(c, "cpu", world)
+    else:
+        with pytest.raises(ValueError, match=match):
+            check_switches(c, "cpu", world)
+
+
+def test_single_process_zero1_runs(tmp_path, capsys):
+    """``TPU.ZERO1`` with ``TPU.MESH_DATA`` -1 in one process runs (a data
+    axis of one rank: nothing is cut and no collective runs)."""
+    result = port_main.main([
+        "--cfg", os.path.join(PORT_CFG, "aff_mini.yaml"), "--throughput",
+        "--device", "cpu", "--batch-size", "2",
+        "--data-path", str(tmp_path / "no_dataset"),
+        "--opts", *TINY_OPTS, "TPU.ZERO1", "True", "TPU.MESH_DATA", "-1"])
+    assert result["world"] == 1 and result["data"] == 1
+    assert result["throughput_img_s"] > 0
 
 
 def test_use_pallas_false_raises_on_the_card_only():
