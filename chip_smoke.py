@@ -184,8 +184,10 @@ Phases, one JSON line each:
    UD-Mini 224 (ratio 1.0), fp32, b = 2 per rank, at data 2, data 2 +
    ZeRO-1 and model 2 against the one-process steps of the global batch
    on the same card (loss and grad_norm within 1e-4 relative, every
-   gradient and parameter within 1e-3 of its tensor's largest entry), each
-   rank's launches; parallel_train runs ``main`` on two ranks (``--device
+   gradient and parameter within 1e-3 of its tensor's largest entry),
+   UD-Mini also at data 2 with ``ATTN_DROP_RATE`` 0.1 (each data rank's
+   attention seed offset by its first global image), each rank's
+   launches; parallel_train runs ``main`` on two ranks (``--device
    cuda:0 --dist-backend gloo``) for AFF-Mini and UD-Mini at b = 64 per
    rank, bf16, two epochs of two steps, with and without ``TPU.ZERO1``:
    img/s per rank and summed, peak memory per rank, ms per step in
@@ -193,7 +195,27 @@ Phases, one JSON line each:
    torchrun's environment with NCCL; parallel_ckpt evaluates the two-rank
    ZeRO-1 checkpoint in one process (``--eval --resume``), whose val loss
    must match the run's;
-14. stop_processes, also when a phase fails: the loaders' worker server
+14. sequence parallelism (``TPU.MESH_SEQ``), two processes sharing the
+   one card through gloo: kernel_check / kernel_time rows
+   ``attention_seq2_*`` hold the attention forward (with statistics and
+   with dropout) and the saved backward (with and without dropout, every
+   output, also against the exact gradient) over each half of the tokens
+   (``q0`` = 0 and the second half) against every token's k/v, at
+   AFF-Mini's stages and UD-Mini's n = 1921 / 4165 level shapes, b = 128
+   bf16, timed beside the range's bound (``range_work``: the kv rows of
+   the clusters the range reads and the positions it reads, counted
+   once); seq_full_range: a range of every token (``q0`` = 0, ``nq`` =
+   n) gives the plain launch's bits;
+   parallel_seq_check runs two train steps of AFF-Mini and UD-Mini (ratio
+   1.0), fp32, b = 2, at seq 2 against the one-process steps (loss and
+   grad_norm within 1e-5 relative, gradients and parameters as
+   parallel_check), UD-Mini also with ``ATTN_DROP_RATE`` 0.1, every
+   attention launch of the ranks a range; parallel_seq_train runs ``main``
+   on two ranks at seq 2 for AFF-Mini and UD-Mini, b = 64, bf16, one epoch
+   of four steps (its throughput protocol cut to 1 + 1 forwards): img/s
+   after the first step and peak memory per rank, ms per step in
+   collectives, launches;
+15. stop_processes, also when a phase fails: the loaders' worker server
    and its resource tracker are stopped and waited for, and the script
    fails if a child process of its own is still running.
 
@@ -208,7 +230,9 @@ dropout) and in the two runs on the folder
 (``..._imagefolder_train``), in the remat runs (``..._remat_blocks``,
 ``_remat_dots``), the exported programs' calls (``..._export``), the
 profiled run (``aff_mini_profile``), each rank of the parallel runs
-(``<model>_<layout>_rank<r>``, ``<model>_parallel_train[_zero1]_rank<r>``,
+(``<model>[_attn_drop]_<layout>_rank<r>``,
+``<model>_parallel_train[_zero1]_rank<r>``,
+``<model>[_attn_drop]_seq2_rank<r>``, ``<model>_seq2_train_rank<r>``,
 counted inside each rank's process) and the NCCL run
 (``aff_mini_nccl_world1``), and for the attention kernels their
 times at the UD-Mini shapes (``maskfiner_ud_mini``: the forward at eval;
@@ -235,8 +259,9 @@ from ml_autofocusformermod_torch.config import load_config
 # the AFF-Mini shapes, the timers and the input builders, shared with the
 # A/B timing tool
 from ml_autofocusformermod_torch.time_kernels import (
-    ATTN_ARGS, ATTN_STAGES, CS, IC, MERGES, RATIO_ONE, attention_inputs,
-    captured_attention, clustered_stage, device_ms, merge_inputs, time_ms,
+    ATTN_ARGS, ATTN_STAGES, CS, IC, MERGES, NNC, RATIO_ONE,
+    attention_inputs, captured_attention, clustered_stage, device_ms,
+    merge_inputs, time_ms,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -526,41 +551,43 @@ def check_stats(name, dtype_name, h, got, ref):
                      ref[..., h:]))
 
 
-def check_modes_fwd(torch, name, dtype_name, args, geo, meta=None):
+def check_modes_fwd(torch, name, dtype_name, args, geo, meta=None, q0=0):
     """The forward with statistics (output and statistics) and with
     dropout against the plain versions (f32 inside) on the same inputs;
     dropout where c_ % 8 == 0 (as the JAX package's, it needs that).
-    Returns the kernel's (out, stats) of both (None for no dropout), for
-    the backwards, and the worst error."""
+    ``q0``: the token of q's first row (a query range). Returns the
+    kernel's (out, stats) of both (None for no dropout), for the
+    backwards, and the worst error."""
     from ml_autofocusformermod_torch.ops.cluster_attention import (
         cluster_attention_forward, cluster_attention_reference,
     )
 
     plain = [t.float() if t.is_floating_point() else t for t in args]
     saved = cluster_attention_forward(*args, *geo, meta=meta,
-                                      want_stats=True)
-    ref = cluster_attention_reference(*plain, *geo, want_stats=True)
+                                      want_stats=True, q0=q0)
+    ref = cluster_attention_reference(*plain, *geo, want_stats=True, q0=q0)
     torch.cuda.synchronize()
     err = max(check(f"{name}_stats_out", dtype_name, saved[0], ref[0]),
               check_stats(name, dtype_name, geo[0], saved[1], ref[1]))
     dsaved = None
     if (args[0].shape[2] // geo[0]) % 8 == 0:
         dsaved = cluster_attention_forward(*args, *geo, meta=meta, drop=DROP,
-                                           want_stats=True)
-        dref = cluster_attention_reference(*plain, *geo, drop=DROP)
+                                           want_stats=True, q0=q0)
+        dref = cluster_attention_reference(*plain, *geo, drop=DROP, q0=q0)
         torch.cuda.synchronize()
         err = max(err, check(f"{name}_dropout", dtype_name, dsaved[0], dref))
     return saved, dsaved, err
 
 
 def check_modes_bwd(torch, name, dtype_name, args, g, geo, saved, dsaved,
-                    meta=None):
+                    meta=None, q0=0):
     """The saved-stats backward on the forward kernel's own output and
     statistics (``saved``), and under dropout (``dsaved``, the forward's
     with the dropout; None: no dropout check), against the plain saved
     backward in f64 on the same inputs (in batch chunks), every output
     (``..._saved_<output>``, ``..._saved_dropout_<output>``), and against
-    the exact gradient (:func:`check_exact`). Returns the worst error."""
+    the exact gradient (:func:`check_exact`); ``q0`` as for
+    :func:`check_modes_fwd`. Returns the worst error."""
     from ml_autofocusformermod_torch.ops.cluster_attention import (
         cluster_attention_backward,
     )
@@ -573,19 +600,19 @@ def check_modes_bwd(torch, name, dtype_name, args, g, geo, saved, dsaved,
         if sv is None:
             continue
         exact = plain_backward(torch, args, g, geo, torch.float64, saved=sv,
-                               drop=drop)
+                               drop=drop, q0=q0)
         got = cluster_attention_backward(*args, g, *geo, meta=meta,
-                                         saved=sv, drop=drop)
+                                         saved=sv, drop=drop, q0=q0)
         torch.cuda.synchronize()
         err = max([err] + [check(f"{name}_{mode}_{o}", dtype_name, x, y)
                            for o, x, y in zip(outs, got, exact)])
         del exact
         err = max(err, check_exact(torch, f"{name}_{mode}", dtype_name, args,
-                                   g, geo, got, drop))
+                                   g, geo, got, drop, q0))
     return err
 
 
-def check_exact(torch, name, dtype_name, args, g, geo, got, drop):
+def check_exact(torch, name, dtype_name, args, g, geo, got, drop, q0=0):
     """The saved-stats backward's outputs ``got`` against the exact
     gradient, the plain backward recomputing in f64 (lines
     ``..._exact_<output>``). The saved mode takes S = rowsum(g * out) from
@@ -598,11 +625,13 @@ def check_exact(torch, name, dtype_name, args, g, geo, got, drop):
     shows past it. Returns the worst error."""
     outs = ["dq", "dkv", "d_pe_kernel", "d_pe_bias", "d_blank_k",
             "d_blank_v"]
-    exact = plain_backward(torch, args, g, geo, torch.float64, drop=drop)
-    out, stats = plain_forward(torch, args, geo, torch.float64, drop=drop)
+    exact = plain_backward(torch, args, g, geo, torch.float64, drop=drop,
+                           q0=q0)
+    out, stats = plain_forward(torch, args, geo, torch.float64, drop=drop,
+                               q0=q0)
     emulated = plain_backward(torch, args, g, geo, torch.float64,
                               saved=(out.to(args[0].dtype), stats.float()),
-                              drop=drop)
+                              drop=drop, q0=q0)
     del out, stats
     return max(check(f"{name}_exact_{o}", dtype_name, x, y,
                      delta_trick_err=(e - y).abs().max().item())
@@ -1134,9 +1163,10 @@ def phase_maskfiner_model(torch):
                                  "plain path or launched the wrong kernels")
 
 
-def plain_forward(torch, args, geo, dtype, chunk=8, drop=None):
+def plain_forward(torch, args, geo, dtype, chunk=8, drop=None, q0=0):
     """The plain forward's (out, stats) in ``dtype`` over batch chunks of
-    ``chunk`` images, as :func:`plain_backward` goes."""
+    ``chunk`` images, as :func:`plain_backward` goes (``q0``: a query
+    range's first token)."""
     from ml_autofocusformermod_torch.ops.cluster_attention import (
         cluster_attention_reference,
     )
@@ -1146,18 +1176,19 @@ def plain_forward(torch, args, geo, dtype, chunk=8, drop=None):
         sl = [(t[s0:s0 + chunk] if i < 4 else t) for i, t in enumerate(args)]
         parts.append(cluster_attention_reference(
             *(t.to(dtype) if t.is_floating_point() else t for t in sl),
-            *geo, drop=drop, want_stats=True, img0=s0))
+            *geo, drop=drop, want_stats=True, img0=s0, q0=q0))
     return tuple(torch.cat([p[i] for p in parts]) for i in range(2))
 
 
 def plain_backward(torch, args, g, geo, dtype, chunk=8, saved=None,
-                   drop=None):
+                   drop=None, q0=0):
     """The plain backward in ``dtype`` over batch chunks of ``chunk``
     images (its gathered (b, h, n, m, c_) tensors of a whole b = 128 batch
     would not fit the card in f64): dq and dkv per image, the parameter
     gradients summed over the chunks. ``saved``: the forward's (out,
     stats); ``drop``: (rate, seed), whose masks hash the image's index in
-    the whole batch, so each chunk takes its images' masks apart."""
+    the whole batch, so each chunk takes its images' masks apart; ``q0``:
+    a query range's first token."""
     from ml_autofocusformermod_torch.ops.cluster_attention import (
         cluster_attention_backward_reference,
     )
@@ -1177,7 +1208,7 @@ def plain_backward(torch, args, g, geo, dtype, chunk=8, saved=None,
             kw["drop"] = drop
             kw["img0"] = s0
         parts.append(cluster_attention_backward_reference(
-            *sl, cast(g[s0:s0 + chunk]), *geo, **kw))
+            *sl, cast(g[s0:s0 + chunk]), *geo, q0=q0, **kw))
     return ([torch.cat([p[i] for p in parts]) for i in range(2)]
             + [sum(p[i] for p in parts) for i in range(2, 6)])
 
@@ -1475,6 +1506,14 @@ COUNTERS = {
                           "launches"),
     "merge_inverse_index": ("cluster_merge", "merge_inverse_index",
                             "launches"),
+    # the attention launches over a proper part of the tokens (sequence
+    # parallelism's query ranges)
+    "cluster_attention_fwd_range": ("cluster_attention",
+                                    "fused_cluster_attention",
+                                    "range_launches"),
+    "cluster_attention_bwd_range": ("cluster_attention",
+                                    "cluster_attention_backward",
+                                    "range_launches"),
 }
 
 
@@ -2741,9 +2780,9 @@ torch.cuda.set_device(0)
 rank, world, _ = mesh_lib.init_distributed("cuda:0", "gloo", spec["init"])
 x, y = torch.load(spec["batch"])
 try:
-    for name, preset, data, model_size, zero1 in spec["cases"]:
-        cfg = cs.port_config(preset, ["TPU.COMPUTE_DTYPE", "float32"])
-        mesh = mesh_lib.make_mesh(data, model_size)
+    for name, preset, data, model_size, zero1, seq, opts in spec["cases"]:
+        cfg = cs.port_config(preset, ["TPU.COMPUTE_DTYPE", "float32", *opts])
+        mesh = mesh_lib.make_mesh(data, model_size, seq)
         model = build_model(cfg, "cuda:0", seed=0,
                             upscale_ratios=RATIO_ONE.get(preset))
         layout = make_layout(model, mesh, zero1)
@@ -2859,19 +2898,219 @@ def phase_parallel_kernels(torch):
     return rows
 
 
+# sequence parallelism's query ranges at seq 2: (label, n, heads, c,
+# cluster size, nnc, rel width, clamp, canvas, per pass). AFF-Mini's
+# stages take their own geometry (canvas None); UD-Mini's finest level at
+# the curriculum's final ratios (n = 1921) and at ratio 1.0 (4165), its
+# widths (h 2, c 64) and MixRes clamp, on clustered cells of a 96 x 96
+# canvas.
+SEQ_SHAPES = [(label, n, h, c, CS, NNC, 224 // 4 - 1, 0, None, per)
+              for label, n, h, c, per in ATTN_STAGES] + [
+    ("ud_n1921", 1921, 2, 64, 8, 6, 511, 1023, 96, 1),
+    ("ud_n4165", 4165, 2, 64, 8, 6, 511, 1023, 96, 1)]
+
+
+def seq_inputs(torch, gen, shape, b, dev, dtype):
+    """The attention inputs of one ``SEQ_SHAPES`` entry, by name."""
+    _, n, h, c, cs, nnc, _, _, canvas, _ = shape
+    geometry = (None if canvas is None
+                else clustered_stage(gen, b, n, canvas, dev, cs, nnc))
+    return attention_inputs(gen, b, n, h, c, dev, dtype, geometry)
+
+
+def range_work(torch, a, lo, hi, h, cs, bwd=False):
+    """(bytes, flops) of one attention call over the queries ``[lo, hi)``
+    of ``a`` (``bwd``: its saved backward), each byte counted once: the
+    range's rows of q, ncc, the output and the statistics, the kv rows of
+    the clusters the range reads (``union_rows``), the positions of the
+    range's queries and of those kv rows, and the small parameters; the
+    backward also reads g, the output and the statistics and writes dq and
+    dkv of every token. Flops as :func:`attn_work` and
+    :func:`attn_bwd_work` count them, over the range's slots."""
+    from ml_autofocusformermod_torch.ops.cluster_gather import (
+        cluster_token_index,
+    )
+
+    q, ncc, pos = a["q"], a["ncc"], a["pos"]
+    b, n, c = q.shape
+    c_, nq, es = c // h, hi - lo, q.element_size()
+    part = ncc[:, lo:hi]
+    valid = (cluster_token_index(part, cs) < n).sum().item()
+    images = 1 if ncc.stride(0) == 0 else b
+
+    def kv_read(nc):  # one image's range: the tokens whose k/v it reads
+        ids = torch.unique(nc).long()
+        tok = (ids[:, None] * cs
+               + torch.arange(cs, device=ids.device)).flatten()
+        read = torch.zeros(n, dtype=torch.bool, device=nc.device)
+        read[tok[tok < n]] = True
+        return read
+
+    kv = torch.stack([kv_read(part[i]) for i in range(images)])
+    union_rows = int(kv.sum().item()) * (b // images)
+    at = kv.clone()  # the positions read: the kv rows' and the queries'
+    at[:, lo:hi] = True
+    if pos.stride(0) == 0:  # one image's positions, shared by the batch
+        pos_rows = int(at.any(0).sum().item())
+    else:
+        pos_rows = int(at.sum().item()) * (b // images)
+    small = nbytes(*(a[k] for k in ("pe_kernel", "pe_bias", "blank_k",
+                                    "blank_v")))
+    rows = b * nq * c * es  # q, the output, g or dq: one range's rows
+    stats = b * nq * 2 * h * 4
+    moved = (rows + union_rows * 2 * c * es + nbytes(part)
+             + pos_rows * pos.shape[-1] * pos.element_size()
+             + small + rows + stats)
+    if not bwd:
+        return moved, valid * h * (4 * c_ + 12) + b * nq * h * 4 * c_
+    moved += 2 * rows + b * n * 2 * c * es + small  # g, dq, dkv, d_params
+    return moved, valid * h * (10 * c_ + 24) + b * nq * h * 8 * c_
+
+
+def phase_seq_kernels(torch):
+    """The attention kernels over sequence parallelism's query ranges at
+    seq 2 (``SEQ_SHAPES``, b = 128 bf16): each rank's half of the tokens
+    (``q0`` = 0, and ``q0`` = the first half's size) against every
+    token's k and v, the forward with statistics and with dropout and the
+    saved backward with and without dropout (every output, also against
+    the exact gradient) against their plain versions over the same range
+    (kernel_check's limits), with times beside each range's bound
+    (``range_work``). A range of every token (``q0`` = 0, ``nq`` = n) is
+    the plain launch's, bit for bit (``seq_full_range`` lines). Returns
+    the rows by kernel: ``cluster_attention_fwd`` the forward with
+    statistics, ``cluster_attention_bwd`` the saved backward, as training
+    calls them."""
+    from ml_autofocusformermod_torch.ops.cluster_attention import (
+        cluster_attention_backward, cluster_attention_forward,
+        cluster_attention_reference, tile_metadata,
+    )
+    from ml_autofocusformermod_torch.parallel.mesh import token_range
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(31)
+    rows = {"cluster_attention_fwd": [], "cluster_attention_bwd": []}
+    for shape in SEQ_SHAPES:
+        label, n, h, c, cs, _, R, clamp, _, per = shape
+        a = seq_inputs(torch, gen, shape, 128, dev, torch.bfloat16)
+        g = torch.randn(128, n, c, generator=gen).to(dev, torch.bfloat16)
+        args = [a[k] for k in ATTN_ARGS]
+        geo = (h, cs, R, clamp)
+        meta = tile_metadata(a["ncc"])
+        whole = cluster_attention_forward(*args, *geo, meta=meta,
+                                          want_stats=True)
+        ranged = cluster_attention_forward(*args, *geo, meta=meta,
+                                           want_stats=True, q0=0)
+        dwhole = cluster_attention_backward(*args, g, *geo, meta=meta,
+                                            saved=whole)
+        dranged = cluster_attention_backward(*args, g, *geo, meta=meta,
+                                             saved=ranged, q0=0)
+        torch.cuda.synchronize()
+        same = (all(torch.equal(x, y) for x, y in zip(whole, ranged))
+                and all(torch.equal(x, y) for x, y in zip(dwhole, dranged)))
+        emit({"phase": "seq_full_range", "shape": label, "n": n,
+              "bitwise_equal": same, "ok": same})
+        if not same:
+            raise AssertionError(f"seq_full_range {label}")
+        del whole, ranged, dwhole, dranged
+        for seq_rank in (0, 1):
+            lo, hi = token_range(n, 2, seq_rank)
+            rargs = [a["q"][:, lo:hi].contiguous(), a["kv"],
+                     a["ncc"][:, lo:hi], a["pos"], *args[4:]]
+            gr = g[:, lo:hi].contiguous()
+            rmeta = tile_metadata(rargs[2])
+            tag = f"attention_seq2_{label}_q{lo}_b128"
+            saved, dsaved, err_f = check_modes_fwd(
+                torch, tag, "bfloat16", rargs, geo, rmeta, q0=lo)
+            err_b = check_modes_bwd(torch, tag, "bfloat16", rargs, gr, geo,
+                                    saved, dsaved, rmeta, q0=lo)
+            base = dict(shape=f"{label}_seq2_q{lo}", b=128, n=n, nq=hi - lo,
+                        q0=lo, heads=h, c=c, clamp_width=clamp,
+                        per_pass=per, seq_rank=seq_rank)
+            rows["cluster_attention_fwd"].append(timed_row(
+                torch, base,
+                lambda: cluster_attention_forward(*rargs, *geo, meta=rmeta,
+                                                  want_stats=True, q0=lo),
+                lambda: cluster_attention_reference(*rargs, *geo,
+                                                    want_stats=True, q0=lo),
+                range_work(torch, a, lo, hi, h, cs), err_f, mode="stats"))
+            rows["cluster_attention_bwd"].append(timed_row(
+                torch, base,
+                lambda: cluster_attention_backward(*rargs, gr, *geo,
+                                                   meta=rmeta, saved=saved,
+                                                   q0=lo),
+                lambda: plain_backward(torch, rargs, gr, geo, torch.float32,
+                                       chunk=32, saved=saved, q0=lo),
+                range_work(torch, a, lo, hi, h, cs, bwd=True), err_b,
+                mode="saved"))
+            for kernel, rs in rows.items():
+                emit({"phase": "kernel_time", "kernel": kernel, "seq": 2,
+                      **rs[-1]})
+            del saved, dsaved
+    return rows
+
+
 def phase_parallel_check(torch, smi):
     """Two ranks on the one card through gloo (``PARALLEL_RANK``): AFF-Mini
     and UD-Mini 224 (ratio 1.0) fp32, b = 2 per rank, two train steps at
     data 2, data 2 + ZeRO-1 and model 2, against the one-process steps of
-    the global batch (b = 4) on the same card from the same weights: loss
-    and grad_norm within 1e-4 relative, every gradient (of the second
-    step) and parameter within 1e-3 of its tensor's largest entry (floored
-    at 1e-5 of the gradient norm, as train_check). A gradient below that
-    floor in the one-process step is zero in exact arithmetic and round-off
-    in both runs: it is held within the floor, and its parameter within
-    AdamW's largest move over the two steps (twice the sum of the learning
-    rates). Each rank's launches: every kernel of the model's path
-    launched. Returns the launches by run (``<model>_<layout>_rank<r>``)."""
+    the global batch (b = 4) on the same card from the same weights (see
+    :func:`compare_ranks`; loss and grad_norm within 1e-4 relative);
+    UD-Mini also at data 2 with ``ATTN_DROP_RATE`` 0.1 on every level
+    (each data rank's kernels hash the global image: its seed is offset by
+    the rank's first image). Returns the launches by run
+    (``<model>[_attn_drop]_<layout>_rank<r>``)."""
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(4, 3, 224, 224, generator=gen)
+    y = torch.tensor([3, 977, 10, 500])
+    layouts = [(lay, d, m, z, 1) for lay, d, m, z in PARALLEL_LAYOUTS]
+    # at 224 every MixResNeighbour level attends locally: all of this
+    # dropout is the kernels' hash, none the per-data-rank Dropout stream
+    drop = ["MODEL.MR.ATTN_DROP_RATE", json.dumps([0.1] * 7)]
+    return compare_ranks(torch, smi, "parallel_check", x, y, [
+        *((model, preset, "", [], layouts)
+          for model, preset in PARALLEL_MODELS.items()),
+        ("maskfiner_ud_mini", PARALLEL_MODELS["maskfiner_ud_mini"],
+         "attn_drop", drop, layouts[:1])], 1e-4)
+
+
+def phase_parallel_seq_check(torch, smi):
+    """Two ranks on the one card through gloo at seq 2 (each rank half of
+    every stage's tokens, both the same two images): AFF-Mini and UD-Mini
+    224 (ratio 1.0) fp32, b = 2, two train steps against the one-process
+    steps on the same card from the same weights: loss and grad_norm
+    within 1e-5 relative, gradients and parameters as
+    :func:`compare_ranks` holds them; UD-Mini also with ``ATTN_DROP_RATE``
+    0.1 on every level (the kernels hash each query's global row). Every
+    attention launch of the ranks is a range (``..._range`` counters).
+    Returns the launches by run (``<model>[_attn_drop]_seq2_rank<r>``)."""
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(2, 3, 224, 224, generator=gen)
+    y = torch.tensor([3, 977])
+    seq2 = [("seq2", 1, 1, False, 2)]
+    drop = ["MODEL.MR.ATTN_DROP_RATE", json.dumps([0.1] * 7)]
+    return compare_ranks(torch, smi, "parallel_seq_check", x, y, [
+        ("aff_mini", "aff_mini.yaml", "", [], seq2),
+        ("maskfiner_ud_mini", "maskfiner_up_down_mini.yaml", "", [], seq2),
+        ("maskfiner_ud_mini", "maskfiner_up_down_mini.yaml", "attn_drop",
+         drop, seq2)], 1e-5)
+
+
+def compare_ranks(torch, smi, phase, x, y, runs, rel):
+    """Two ranks on the one card through gloo (``PARALLEL_RANK``) take two
+    train steps of the global batch ``x, y`` (each data rank its rows) for
+    each ``(model, preset, variant, opts, layouts)`` of ``runs``, every
+    layout ``(name, data, model, ZeRO-1, seq)``, fp32; the one-process
+    steps of the whole batch on the same card from the same weights are
+    the reference: loss and grad_norm within ``rel`` relative, every
+    gradient (of the second step) and parameter within 1e-3 of its
+    tensor's largest entry (floored at 1e-5 of the gradient norm, as
+    train_check). A gradient below that floor in the one-process step is
+    zero in exact arithmetic and round-off in both runs: it is held within
+    the floor, and its parameter within AdamW's largest move over the two
+    steps (twice the sum of the learning rates). Each rank's launches:
+    every kernel of the model's path launched (at seq > 1 every attention
+    launch a range). A line per run of ``phase``; returns the launches by
+    run (``<model>[_<variant>]_<layout>_rank<r>``)."""
     import os
     import shutil
     import tempfile
@@ -2881,16 +3120,16 @@ def phase_parallel_check(torch, smi):
         create_train_state, make_train_step,
     )
 
+    def run_name(model, variant, lay):
+        return "_".join(p for p in (model, variant, lay) if p)
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
     by_run = {}
     try:
-        gen = torch.Generator().manual_seed(5)
-        x = torch.randn(4, 3, 224, 224, generator=gen)
-        y = torch.tensor([3, 977, 10, 500])
         torch.save((x, y), os.path.join(tmp, "batch.pt"))
-        cases = [(f"{m}_{lay}", preset, d, mo, z)
-                 for m, preset in PARALLEL_MODELS.items()
-                 for lay, d, mo, z in PARALLEL_LAYOUTS]
+        cases = [(run_name(m, v, lay), preset, d, mo, z, sq, opts)
+                 for m, preset, v, opts, layouts in runs
+                 for lay, d, mo, z, sq in layouts]
         spec = {"init": f"tcp://localhost:{free_ports(1)[0]}",
                 "cases": cases,
                 "batch": os.path.join(tmp, "batch.pt"), "out": tmp}
@@ -2902,8 +3141,9 @@ def phase_parallel_check(torch, smi):
         tf32 = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = False
         try:
-            for model_name, preset in PARALLEL_MODELS.items():
-                cfg = port_config(preset, ["TPU.COMPUTE_DTYPE", "float32"])
+            for model_name, preset, variant, opts, layouts in runs:
+                cfg = port_config(preset, ["TPU.COMPUTE_DTYPE", "float32",
+                                           *opts])
                 model = build_model(cfg, "cuda", seed=0,
                                     upscale_ratios=RATIO_ONE.get(preset))
                 state, schedule = create_train_state(cfg, model, 10)
@@ -2922,8 +3162,9 @@ def phase_parallel_check(torch, smi):
                 noise = sorted(k for k, (g, _) in ref_full.items()
                                if g.abs().max().item() < floor)
                 step_bound = 2 * sum(m["lr"] for m in ref)
-                for lay, data, model_size, zero1 in PARALLEL_LAYOUTS:
-                    name = f"{model_name}_{lay}"
+                del model, state, step, ref
+                for lay, data, model_size, zero1, seq in layouts:
+                    name = run_name(model_name, variant, lay)
                     full = torch.load(os.path.join(tmp, name + ".pt"))
                     worst = {"grad": (0.0, ""), "param": (0.0, "")}
                     noise_ok = True
@@ -2940,27 +3181,39 @@ def phase_parallel_check(torch, smi):
                                    / max(b.abs().max().item(), floor))
                             worst[part] = max(worst[part], (err, k))
                     per_rank = [lines[(name, r)] for r in (0, 1)]
-                    path = [k for k, v in expect_path(
+                    want = expect_path(
                         "aff_mini" if model_name == "aff_mini"
-                        else "maskfiner_ud_mini", 0, 1).items() if v]
+                        else "maskfiner_ud_mini", 0, 1,
+                        attn_drop=variant == "attn_drop")
+                    path = [k for k, v in want.items() if v]
+                    if seq > 1:
+                        path += ["cluster_attention_fwd_range",
+                                 "cluster_attention_bwd_range"]
                     launched = all(r["launches"][k] > 0 for r in per_rank
                                    for k in path)
-                    ok = (launched and noise_ok
-                          and all(abs(a - b) <= 1e-4 * abs(b)
+                    ranged = seq == 1 or all(
+                        r["launches"][f"cluster_attention_{d}_range"]
+                        == r["launches"][f"cluster_attention_{d}"]
+                        for r in per_rank for d in ("fwd", "bwd"))
+                    ok = (launched and ranged and noise_ok
+                          and all(abs(a - b) <= rel * abs(b)
                                   for r in per_rank
                                   for a, b in zip(r["loss"], ref_loss))
-                          and all(abs(a - b) <= 1e-4 * abs(b)
+                          and all(abs(a - b) <= rel * abs(b)
                                   for r in per_rank
                                   for a, b in zip(r["grad_norm"], ref_gn))
                           and worst["grad"][0] <= 1e-3
                           and worst["param"][0] <= 1e-3)
-                    emit({"phase": "parallel_check", "model": model_name,
+                    emit({"phase": phase, "model": model_name,
+                          **({"variant": variant} if variant else {}),
                           "layout": lay, "data": data, "model_axis":
-                          model_size, "zero1": zero1, "dtype": "float32",
-                          "b_per_rank": 4 // data, "backend": "gloo",
+                          model_size, "seq": seq, "zero1": zero1,
+                          "dtype": "float32",
+                          "b_per_rank": x.shape[0] // data,
+                          "backend": "gloo",
                           "loss": per_rank[0]["loss"], "loss_one": ref_loss,
                           "grad_norm": per_rank[0]["grad_norm"],
-                          "grad_norm_one": ref_gn,
+                          "grad_norm_one": ref_gn, "rel_limit": rel,
                           "worst_grad_rel_err": worst["grad"],
                           "worst_param_rel_err": worst["param"],
                           "grads_at_floor": noise,
@@ -2971,22 +3224,25 @@ def phase_parallel_check(torch, smi):
                                                 for r in per_rank],
                           "card": smi, "ok": ok})
                     if not ok:
-                        raise AssertionError(f"parallel_check {name}")
+                        raise AssertionError(f"{phase} {name}")
                     for r in (0, 1):
                         by_run[f"{name}_rank{r}"] = per_rank[r]["launches"]
         finally:
             torch.backends.cudnn.allow_tf32 = tf32
-        emit({"phase": "parallel_check_ranks", "seconds": ranks_s})
+        emit({"phase": phase + "_ranks", "seconds": ranks_s})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return by_run
 
 
 PARALLEL_MAIN = r"""
-import gc, json, sys
+import functools, gc, json, sys
 import torch
 import chip_smoke as cs
 from ml_autofocusformermod_torch import main as port_main
+from ml_autofocusformermod_torch.train.trainer import throughput
+if sys.argv[2:] == ["short"]:  # one warmup and one timed forward
+    port_main.throughput = functools.partial(throughput, warmup=1, iters=1)
 for argv in json.loads(sys.argv[1]):
     gc.collect()  # the last run's state, so that its memory is free
     cs.zero_counters()
@@ -3126,6 +3382,84 @@ def phase_parallel_train(torch, smi):
     return by_run, kept
 
 
+def phase_parallel_seq_train(torch, smi):
+    """``main`` on two ranks sharing the one card (gloo, ``--device
+    cuda:0``) at ``TPU.MESH_SEQ`` 2, the runs one after another in the
+    same two processes: AFF-Mini and UD-Mini 224, b = 64 (both ranks the
+    same images, each half of every stage's tokens), bf16, one synthetic
+    epoch of four steps (UD-Mini at the curriculum's ratio 1.0), the
+    collectives timed (``MLAFF_COMM_TIMING=1``). ``main``'s throughput
+    protocol is cut to one warmup and one timed forward: at seq 2 every
+    block gathers its k and v through the host. Per run the img/s after
+    the first step per rank (the two ranks train the same images: not
+    summed), peak memory per rank and the ms per step in collectives;
+    every attention launch a range. Returns the launches by run."""
+    import os
+    import shutil
+    import tempfile
+
+    outs = [tempfile.mkdtemp(prefix="chip_smoke_seq_train_")
+            for _ in PARALLEL_MODELS]
+    argvs = [["--cfg", preset_path(preset), "--device", "cuda:0",
+              "--dist-backend", "gloo", "--dist-url",
+              f"tcp://localhost:{port}", "--data-path", "no_dataset",
+              "--batch-size", "64", "--epochs", "1", "--output", out,
+              "--opts", "TPU.MESH_SEQ", "2"]
+             for preset, out, port in zip(PARALLEL_MODELS.values(), outs,
+                                          free_ports(len(outs)))]
+    t0 = time.perf_counter()
+    try:
+        per_rank = main_runs(run_ranks(
+            (PARALLEL_MAIN, json.dumps(argvs), "short"), 2,
+            {"MLAFF_COMM_TIMING": "1"}))
+    finally:
+        for out in outs:
+            shutil.rmtree(out, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    by_run = {}
+    for i, model_name in enumerate(PARALLEL_MODELS):
+        ranks = [lines[i] for lines in per_rank]
+        trains = [r["run"]["train"] for r in ranks]
+        steps = [t["steps"] for t in trains]
+        # 1 + 1 throughput forwards, 256 validation images / 64, 4 steps
+        want = expect_path(model_name, 1 + 1 + 4, 4)
+        for d in ("fwd", "bwd"):
+            want[f"cluster_attention_{d}_range"] = want[
+                f"cluster_attention_{d}"]
+        ok = (steps == [4, 4] and all(r["launches"] == want for r in ranks)
+              and all(r["run"]["seq"] == 2 for r in ranks)
+              and all(t["skipped_steps"] == 0 for t in trains)
+              and trains[0]["train_loss"] == trains[1]["train_loss"]
+              and trains[0]["val_loss"] == trains[1]["val_loss"]
+              and all(math.isfinite(t["val_loss"]) for t in trains))
+        epoch = [t["epochs"][-1] for t in trains]
+        emit({"phase": "parallel_seq_train", "model": model_name,
+              "ranks": 2, "seq": 2, "data": 1, "backend": "gloo",
+              "device": "one card, two processes", "b": 64,
+              "dtype": "bfloat16", "steps_per_rank": steps,
+              "img_per_s_after_first_per_rank": [
+                  e["img_s_after_first"] for e in epoch],
+              "peak_memory_bytes_per_rank": [
+                  e["peak_memory_bytes"] for e in epoch],
+              "collective_ms_per_step_per_rank": [
+                  1e3 * e["collective_seconds"] / e["steps"]
+                  for e in epoch],
+              "collective_calls_per_step": [
+                  e["collective_calls"] / e["steps"] for e in epoch],
+              "train_loss": trains[0]["train_loss"],
+              "val_loss": trains[0]["val_loss"],
+              "launches_per_rank": [r["launches"] for r in ranks],
+              "card": smi, "ok": ok})
+        if not ok:
+            raise AssertionError(f"parallel_seq_train {model_name}: "
+                                 f"steps {steps}")
+        for r in (0, 1):
+            by_run[f"{model_name}_seq2_train_rank{r}"] = ranks[r]["launches"]
+    emit({"phase": "parallel_seq_train_ranks", "runs": len(outs),
+          "seconds": secs})
+    return by_run
+
+
 def phase_parallel_ckpt(torch, smi, kept):
     """The two-rank ZeRO-1 run's checkpoint (AFF-Mini, bf16) in one
     process: ``main --eval --resume`` at b = 64 over the same 256
@@ -3158,7 +3492,7 @@ def phase_parallel_ckpt(torch, smi, kept):
 
 
 def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
-                 mft_launches, tp_rows):
+                 mft_launches, tp_rows, seq_rows):
     """One entry per CUDA kernel: launches in the training run of the entry
     point (the AFF path, which runs them all), the worst check error, and
     per AFF-Mini b128 bf16 pass (a forward for the forward kernels, a
@@ -3173,8 +3507,12 @@ def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
     (``launches_from``). The attention forward and backward also carry
     ``aff_mini_tp2``: their rows at AFF-Mini's tensor-parallel shapes (h/2
     heads, c/2 channels), with the launches of rank 0 of the model-2 run
-    of parallel_check (two steps). A kernel of the path that the run did
-    not launch fails the script."""
+    of parallel_check (two steps), and ``aff_mini_seq2``: rank 0's query
+    ranges at seq 2 (AFF-Mini's first half of every stage's tokens), with
+    the launches of rank 0 of parallel_seq_check's AFF-Mini run (two
+    steps), every row of the seq-2 ranges (both halves, AFF-Mini and
+    UD-Mini) under ``seq2_per_shape``. A kernel of the path that the run
+    did not launch fails the script."""
     def total(rs, key):
         return sum(r[key] * r["per_pass"] for r in rs)
 
@@ -3194,6 +3532,7 @@ def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
         rs = rows[name]
         mf = mf_rows if name == "cluster_attention_fwd" else []
         mft = mft_rows.get(name, [])
+        seq = seq_rows.get(name, [])
         mf_path = name.endswith("_dropout")
         ud_run = "maskfiner_ud_mini_train" + ("_attn_drop" if mf_path
                                               else "")
@@ -3206,7 +3545,8 @@ def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
             "replaces": replaces, "also_replaces": also,
             "launches": n_launches,
             "launches_from": ud_run if mf_path else "aff_mini_train",
-            "max_abs_err": max(r["max_abs_err"] for r in rs + mf + mft),
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in rs + mf + mft + seq),
             "ms": total(rs, "ms"), "device_ms": total(rs, "device_ms"),
             "plain_ms": total(rs, "plain_ms"),
             "bound_ms": total(rs, "bound_ms"), "bound_by": bound_by(rs),
@@ -3223,6 +3563,12 @@ def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
         if name in tp_rows:
             entry["aff_mini_tp2"] = block(
                 tp_rows[name], mft_launches["aff_mini_tp2_rank0"][name])
+        if seq:
+            entry["aff_mini_seq2"] = block(
+                [r for r in seq if r["seq_rank"] == 0
+                 and r["shape"].startswith("stage")],
+                mft_launches["aff_mini_seq2_rank0"][name])
+            entry["seq2_per_shape"] = seq
         if mf:
             entry["maskfiner_ud_mini"] = block(mf, mf_launches[name])
         for tag in ("r1", "final"):
@@ -3276,12 +3622,15 @@ def main() -> int:
         phase_flops(torch, smi)
         mft_launches["aff_mini_profile"] = phase_profile(torch, smi)
         tp_rows = phase_parallel_kernels(torch)
+        seq_rows = phase_seq_kernels(torch)
         mft_launches.update(phase_parallel_check(torch, smi))
+        mft_launches.update(phase_parallel_seq_check(torch, smi))
         by_run, kept = phase_parallel_train(torch, smi)
         mft_launches.update(by_run)
         phase_parallel_ckpt(torch, smi, kept)
+        mft_launches.update(phase_parallel_seq_train(torch, smi))
         line = kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
-                            mft_launches, tp_rows)
+                            mft_launches, tp_rows, seq_rows)
     finally:
         stop_processes()
     emit(line)

@@ -14,9 +14,10 @@ Across processes (a train state with a ``layout``) a checkpoint still holds
 the one-process layout, as the JAX package's process 0 writes the global
 arrays (``orbax_io.py:73``): every rank takes part in gathering the
 tensor-parallel blocks over the model axis and the ZeRO-1 blocks of the
-moments and EMA over the data axis, and rank 0 alone writes. A load cuts
-each rank's blocks from that layout again, so a checkpoint written by W
-ranks resumes in one process and the reverse.
+moments and EMA over the data axis, and rank 0 alone writes; the seq
+ranks of a data rank hold replicas, so rank 0 speaks for them too. A load
+cuts each rank's blocks from that layout again, so a checkpoint written by
+W ranks resumes in one process and the reverse.
 """
 
 from __future__ import annotations

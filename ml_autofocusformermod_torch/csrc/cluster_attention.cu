@@ -59,7 +59,7 @@ cluster_attention_fwd_kernel(const __grid_constant__ Params p) {
   blk.attend();
   const int c = blk.c, c_ = blk.c_, cw = blk.cws, w = blk.G * cw;
   E* out = static_cast<E*>(p.out) +
-           (static_cast<long long>(blk.bi) * p.n + blk.q0) * c +
+           (static_cast<long long>(blk.bi) * p.nq + blk.q0) * c +
            blk.hg * blk.G * c_ + blk.chs;
   for (int e = threadIdx.x; e < blk.rows * w; e += kThreads) {
     const int i = e / w;
@@ -73,7 +73,8 @@ cluster_attention_fwd_kernel(const __grid_constant__ Params p) {
     for (int e = threadIdx.x; e < blk.G * blk.rows; e += kThreads) {
       const int g = e / blk.rows, i = e - g * blk.rows;
       float* st = p.stats +
-                  (static_cast<long long>(blk.bi) * p.n + blk.q0 + i) * 2 * p.h;
+                  (static_cast<long long>(blk.bi) * p.nq + blk.q0 + i) * 2 *
+                      p.h;
       st[blk.head(g)] = blk.m_[blk.st_at(g, i)];
       st[p.h + blk.head(g)] = blk.l_[blk.st_at(g, i)];
     }
@@ -108,9 +109,13 @@ int launch(Params& p, int esize, bool vec, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, kv and out). ucl, ucount, nidx:
-// the tile metadata (ops/cluster_attention.py::tile_metadata), batch-
-// broadcast when meta_batched is 0. stats: (b, n, 2h) f32, written when
+// dtype: 0 = float32, 1 = bfloat16 (q, kv and out). The query range: q,
+// out and stats hold nq rows per image, the tokens [qoff, qoff + nq) of
+// the n that kv and pos hold (qoff = 0, nq = n: every token); a query's
+// position and its dropout row are those of its token. ucl, ucount, nidx:
+// the tile metadata (ops/cluster_attention.py::tile_metadata) of the
+// range's rows of ncc, batch-broadcast when meta_batched is 0. stats:
+// (b, nq, 2h) f32, written when
 // not null. drop: 1 for attention dropout with drop_seed, drop_thresh
 // and drop_scale (drop_keep), for c_ % 8 == 0 and 16-byte aligned q and
 // kv. Returns a cudaError_t.
@@ -118,11 +123,13 @@ extern "C" int cluster_attention_fwd(
     const void* q, const void* kv, const void* pos, const void* ucl,
     const void* ucount, const void* nidx, const void* pe_kernel,
     const void* pe_bias, const void* blank_k, const void* blank_v, void* out,
-    void* stats, int b, int n, int h, int c_, int nnc, int cs, int rel_width,
-    int clamp_width, long long pos_bstride, int meta_batched, int dtype,
-    int drop, int drop_seed, int drop_thresh, float drop_scale,
-    void* stream) {
-  if (static_cast<long long>(b) * n == 0) return cudaSuccess;
+    void* stats, int b, int n, int nq, int qoff, int h, int c_, int nnc,
+    int cs, int rel_width, int clamp_width, long long pos_bstride,
+    int meta_batched, int dtype, int drop, int drop_seed, int drop_thresh,
+    float drop_scale, void* stream) {
+  if (static_cast<long long>(b) * nq == 0) return cudaSuccess;
+  if (qoff < 0 || nq < 0 || qoff + nq > n)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p = {};
   p.q = q;
   p.kv = kv;
@@ -142,11 +149,13 @@ extern "C" int cluster_attention_fwd(
   p.drop_scale = drop_scale;
   p.b = b;
   p.n = n;
+  p.nq = nq;
+  p.qoff = qoff;
   p.h = h;
   p.c_ = c_;
   p.nnc = nnc;
   p.cs = cs;
-  p.ntiles = (n + kTile - 1) / kTile;
+  p.ntiles = (nq + kTile - 1) / kTile;
   p.clamp_hi = clamp_width > 0 ? clamp_width - 1 : -1;
   p.R = static_cast<float>(rel_width);
   p.pos_bstride = pos_bstride;

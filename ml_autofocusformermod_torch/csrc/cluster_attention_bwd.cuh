@@ -106,7 +106,7 @@ __device__ __forceinline__ void saved_deltas(K& k) {
   const Params& P = k.P;
   const int i = threadIdx.x / kRow, q = threadIdx.x % kRow;
   const E* ob = static_cast<const E*>(P.outp) +
-                static_cast<long long>(k.bi) * P.n * k.c + k.hg * k.G * k.c_;
+                static_cast<long long>(k.bi) * P.nq * k.c + k.hg * k.G * k.c_;
   for (int g = 0; g < k.G; ++g) {
     float s = 0.f;
     if (i < k.rows) {
@@ -120,7 +120,8 @@ __device__ __forceinline__ void saved_deltas(K& k) {
       float m = 0.f, inv = 1.f;
       if (i < k.rows) {
         const float* st =
-            P.stats + (static_cast<long long>(k.bi) * P.n + k.q0 + i) * 2 * P.h;
+            P.stats +
+            (static_cast<long long>(k.bi) * P.nq + k.q0 + i) * 2 * P.h;
         m = st[k.head(g)];
         inv = 1.f / st[P.h + k.head(g)];
       }
@@ -254,7 +255,7 @@ __device__ __forceinline__ void finish(K& k) {
   const int c = k.c, c_ = k.c_, cw = k.cws, chs = k.chs, w = k.G * cw;
   const int h = P.h;
   E* dq = static_cast<E*>(P.dq) +
-          (static_cast<long long>(k.bi) * P.n + k.q0) * c +
+          (static_cast<long long>(k.bi) * P.nq + k.q0) * c +
           k.hg * k.G * c_ + chs;
   for (int e = threadIdx.x; e < k.rows * w; e += kThreads) {
     const int i = e / w;
@@ -421,30 +422,34 @@ int launch_bwd(Params& p, int esize, bool vec, void* dkv,
   return cudaGetLastError();
 }
 
-// The C entry of either mode: its arguments into Params, then the launch
-// by dtype (0 = float32, 1 = bfloat16: q, kv, g_out, outp, dq and dkv).
-// The metadata is as for cluster_attention_fwd. outp and stats: the
-// forward's output and (b, n, 2h) f32 statistics (the saved mode reads
-// them; the recompute mode takes null). drop, drop_seed, drop_thresh,
-// drop_scale: the forward's dropout, replayed (c_ % 8 == 0 and 16-byte
-// aligned rows, as the JAX package's fused dropout needs). dkv_part (b,
-// ntiles, ucap, 2c) f32 holds the tiles' partial dk/dv, ucap >= cs *
-// max(ucount) rows per tile; dparams (b * ntiles, 6h + 2c) f32 one row per
-// (image, tile), whose sum over the rows is d_pe_kernel (5, h), d_pe_bias
-// (h), d_blank_k (c_, h) and d_blank_v (h, c_). dq, dkv and both buffers
-// are written in full: no zeroing needed. Returns a cudaError_t.
+// The C entry of either mode: its arguments into Params, then the launch by
+// dtype (0 = float32, 1 = bfloat16: q, kv, g_out, outp, dq and dkv). The query
+// range (nq rows of q, g_out, outp, stats and dq from token qoff, 1 <= nq,
+// qoff + nq <= n) and the metadata are as for cluster_attention_fwd; dkv has
+// all n rows, the range's queries' share of the gradient (0 at tokens that no
+// query of the range reads). outp and stats: the forward's output and (b, nq,
+// 2h) f32 statistics (the saved mode reads them; the recompute mode takes
+// null). drop, drop_seed, drop_thresh, drop_scale: the forward's dropout,
+// replayed (c_ % 8 == 0 and 16-byte aligned rows, as the JAX package's fused
+// dropout needs). dkv_part (b, ntiles, ucap, 2c) f32 holds the tiles' partial
+// dk/dv, ucap >= cs * max(ucount) rows per tile; dparams (b * ntiles, 6h + 2c)
+// f32 one row per (image, tile), whose sum over the rows is d_pe_kernel (5,
+// h), d_pe_bias (h), d_blank_k (c_, h) and d_blank_v (h, c_). dq, dkv and both
+// buffers are written in full: no zeroing needed. Returns a cudaError_t.
 template <class Pick>
 int bwd_entry(const void* q, const void* kv, const void* pos,
               const void* ucl, const void* ucount, const void* nidx,
               const void* pe_kernel, const void* pe_bias,
               const void* blank_k, const void* blank_v, const void* g_out,
               const void* outp, const void* stats, void* dq, void* dkv,
-              void* dkv_part, void* dparams, int b, int n, int h, int c_,
-              int nnc, int cs, int rel_width, int clamp_width,
+              void* dkv_part, void* dparams, int b, int n, int nq, int qoff,
+              int h, int c_, int nnc, int cs, int rel_width, int clamp_width,
               long long pos_bstride, int meta_batched, int ucap, int dtype,
               int drop, int drop_seed, int drop_thresh, float drop_scale,
               void* stream) {
   if (static_cast<long long>(b) * n == 0) return cudaSuccess;
+  if (qoff < 0 || nq < 1 || qoff + nq > n)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p = {};
   p.q = q;
   p.kv = kv;
@@ -468,11 +473,13 @@ int bwd_entry(const void* q, const void* kv, const void* pos,
   p.dparams = static_cast<float*>(dparams);
   p.b = b;
   p.n = n;
+  p.nq = nq;
+  p.qoff = qoff;
   p.h = h;
   p.c_ = c_;
   p.nnc = nnc;
   p.cs = cs;
-  p.ntiles = (n + kTile - 1) / kTile;
+  p.ntiles = (nq + kTile - 1) / kTile;
   p.clamp_hi = clamp_width > 0 ? clamp_width - 1 : -1;
   p.R = static_cast<float>(rel_width);
   p.pos_bstride = pos_bstride;

@@ -75,15 +75,15 @@ extern "C" int cluster_attention_bwd_saved(
     const void* ucount, const void* nidx, const void* pe_kernel,
     const void* pe_bias, const void* blank_k, const void* blank_v,
     const void* g_out, const void* outp, const void* stats, void* dq,
-    void* dkv, void* dkv_part, void* dparams, int b, int n, int h, int c_,
-    int nnc, int cs, int rel_width, int clamp_width, long long pos_bstride,
-    int meta_batched, int ucap, int dtype, int drop, int drop_seed,
-    int drop_thresh, float drop_scale, void* stream) {
+    void* dkv, void* dkv_part, void* dparams, int b, int n, int nq, int qoff,
+    int h, int c_, int nnc, int cs, int rel_width, int clamp_width,
+    long long pos_bstride, int meta_batched, int ucap, int dtype, int drop,
+    int drop_seed, int drop_thresh, float drop_scale, void* stream) {
   if (outp == nullptr || stats == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return bwd_entry<Pick>(
       q, kv, pos, ucl, ucount, nidx, pe_kernel, pe_bias, blank_k, blank_v,
-      g_out, outp, stats, dq, dkv, dkv_part, dparams, b, n, h, c_, nnc,
-      cs, rel_width, clamp_width, pos_bstride, meta_batched, ucap, dtype,
-      drop, drop_seed, drop_thresh, drop_scale, stream);
+      g_out, outp, stats, dq, dkv, dkv_part, dparams, b, n, nq, qoff, h, c_,
+      nnc, cs, rel_width, clamp_width, pos_bstride, meta_batched, ucap,
+      dtype, drop, drop_seed, drop_thresh, drop_scale, stream);
 }

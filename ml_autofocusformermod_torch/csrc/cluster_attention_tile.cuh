@@ -498,16 +498,19 @@ struct Params {
   const float* pe_bias;    // (h,)
   const float* blank_k;    // (c_, h)
   const float* blank_v;    // (h, c_)
-  void* out;               // forward: (b, n, c) in q's dtype
-  float* stats;  // (b, n, 2h) f32 softmax max (lane hi) and denominator
+  void* out;               // forward: (b, nq, c) in q's dtype
+  float* stats;  // (b, nq, 2h) f32 softmax max (lane hi) and denominator
                  // (lane h + hi): written by the forward when not null,
                  // read by the backward in the saved mode
-  const void* g_out;       // backward: (b, n, c)
+  const void* g_out;       // backward: (b, nq, c)
   const void* outp;        // backward, saved mode: the forward's output
-  void* dq;                // backward: (b, n, c) in q's dtype
+  void* dq;                // backward: (b, nq, c) in q's dtype
   float* dkv_part;  // backward: (b, ntiles, ucap, 2c) f32 tile partials
   float* dparams;   // backward: (b * ntiles, 6h + 2c) f32 block partials
   int b, n, h, c_, nnc, cs;
+  // the query range: q, g_out, out, dq and stats hold nq rows, the rows
+  // [qoff, qoff + nq) of the n tokens that kv and pos hold (0 and n: all)
+  int nq, qoff;
   int G, CP, Uc, keep, nch, ntiles;  // nch: channel chunks of CP per head
   int clamp_hi;
   float R;
@@ -617,13 +620,13 @@ struct Block {
     chs = sl * P.CP;
     cws = min(P.CP, c_ - chs);
     q0 = t * kTile;
-    rows = min(kTile, P.n - q0);
+    rows = min(kTile, P.nq - q0);
     p0 = 0;
     Ue = 0;
-    qb = static_cast<const E*>(P.q) + static_cast<long long>(bi) * P.n * c +
+    qb = static_cast<const E*>(P.q) + static_cast<long long>(bi) * P.nq * c +
          hg * G * c_;
     gb = BWD ? static_cast<const E*>(P.g_out) +
-                   static_cast<long long>(bi) * P.n * c + hg * G * c_
+                   static_cast<long long>(bi) * P.nq * c + hg * G * c_
              : nullptr;
     kvb = static_cast<const E*>(P.kv) +
           static_cast<long long>(bi) * P.n * 2 * c + hg * G * 2 * c_;
@@ -641,8 +644,8 @@ struct Block {
   // the blank); 1 without dropout
   __device__ float keep_at(int g, int i, int tok) const {
     if constexpr (DROP)
-      return drop_keep(P.drop_seed, bi, head(g), q0 + i, tok, P.drop_thresh,
-                       P.drop_scale);
+      return drop_keep(P.drop_seed, bi, head(g), P.qoff + q0 + i, tok,
+                       P.drop_thresh, P.drop_scale);
     return 1.f;
   }
   __device__ bool keep() const { return !WIDE || P.keep; }
@@ -758,8 +761,9 @@ struct Block {
     }
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
       const bool live = i < rows;
-      qpos[2 * i] = live ? posb[2 * (q0 + i)] : 0.f;
-      qpos[2 * i + 1] = live ? posb[2 * (q0 + i) + 1] : 0.f;
+      const long long r = P.qoff + q0 + i;  // the query's token row
+      qpos[2 * i] = live ? posb[2 * r] : 0.f;
+      qpos[2 * i + 1] = live ? posb[2 * r + 1] : 0.f;
     }
     const bool one = nch() == 1;  // then G c_ <= kMaxCP
     if (one) {

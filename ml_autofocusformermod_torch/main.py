@@ -32,19 +32,20 @@ at the start of an epoch). Batches reach the device through
 ``data/prefetch.py``. With ``PROFILE`` (``--profile DIR``) the train
 steps ``[PROFILE_START, PROFILE_START + PROFILE_STEPS)`` are traced into
 that directory (``utils/profiling.py``). ``TPU.REMAT`` recomputes each
-block's forward in the backward. Settings the port cannot honour
-(``TPU.MESH_SEQ > 1``, a mesh that does not match the processes,
-``TPU.USE_PALLAS: false`` on the card) raise. Runs on ``cuda`` unless
-``--device cpu``; with no GPU it raises.
+block's forward in the backward. Settings the port cannot honour (a mesh
+that does not match the processes, ``TPU.USE_PALLAS: false`` on the card)
+raise. Runs on ``cuda`` unless ``--device cpu``; with no GPU it raises.
 
 Under torchrun's environment (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``)
 each process is one rank of ``parallel/mesh.py``'s ``(TPU.MESH_DATA,
-TPU.MESH_MODEL)`` layout, on ``cuda:LOCAL_RANK`` unless ``--device`` names
-a device (two ranks may share one card with ``--device cuda:0
---dist-backend gloo``). Each data rank loads its shard of the data, so the
-global batch is ``DATA.BATCH_SIZE x data`` and the learning rate is scaled
-by it; the model is sharded over the model axis (``parallel/tp.py``) and,
-with ``TPU.ZERO1``, the moments and EMA over the data axis
+TPU.MESH_MODEL, TPU.MESH_SEQ)`` layout, on ``cuda:LOCAL_RANK`` unless
+``--device`` names a device (two ranks may share one card with ``--device
+cuda:0 --dist-backend gloo``). Each data rank loads its shard of the data,
+so the global batch is ``DATA.BATCH_SIZE x data`` and the learning rate is
+scaled by it; the model is sharded over the model axis
+(``parallel/tp.py``), each stage's tokens over the seq axis (the seq ranks
+of a data rank load the same images; ``parallel/__init__.py``) and, with
+``TPU.ZERO1``, the moments and EMA over the data axis
 (``parallel/zero.py``). Every rank measures its throughput; validation
 sums over the data ranks; rank 0 alone writes the checkpoints, the logs,
 ``config.json`` and the metrics log. The process group ends with the run.
@@ -377,7 +378,8 @@ def _run(args, config, rank: int, world: int, local_rank: int) -> dict:
     if device.type == "cuda":
         log(f"device: {torch.cuda.get_device_name(device)}")
     if world > 1:
-        log(f"mesh: data {mesh.data} x model {mesh.model} over {world} "
+        seq = f" x seq {mesh.seq}" if mesh.seq > 1 else ""
+        log(f"mesh: data {mesh.data} x model {mesh.model}{seq} over {world} "
             f"processes ({torch.distributed.get_backend()}); global batch "
             f"{config.DATA.BATCH_SIZE * mesh.data}")
     resume = resume_path(config)
@@ -431,6 +433,7 @@ def _run(args, config, rank: int, world: int, local_rank: int) -> dict:
     result = {"throughput_img_s": fps, "num_classes": num_classes,
               "weights": weights, "complexity": cost, "rank": rank,
               "world": world, "data": mesh.data, "model": mesh.model,
+              "seq": mesh.seq,
               "backend": (torch.distributed.get_backend()
                           if torch.distributed.is_initialized() else None)}
     if config.THROUGHPUT_MODE:

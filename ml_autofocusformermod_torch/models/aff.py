@@ -8,6 +8,13 @@ stages cluster with :func:`space_filling_cluster` + :func:`knn`. Local
 stages run the fused cluster-attention kernel; a stage whose neighbourhood
 covers all its tokens (AFF stage 4) runs dense global attention in plain
 torch. Every downsample runs the fused merge kernel.
+
+Under sequence parallelism (``TPU.MESH_SEQ``) each seq rank runs a stage's
+blocks on its token range (``parallel/comm.py::token_range_of``), where
+JAX's ``shard_tokens`` shards the tokens: the clustering, kNN, tile
+metadata, cluster mask, ``prob_net`` and merge work on whole images and
+stay replicated on every seq rank; the features are sliced to the range
+before the blocks and gathered after them.
 """
 
 from __future__ import annotations
@@ -82,10 +89,13 @@ class BasicLayer(nn.Module):
         R = self.rel_pos_width
         m = self.cluster_size
         global_attn = self.nbhd_size >= n
+        # this seq rank's tokens (all of them without a seq axis)
+        tokens = comm.token_range_of(n)
+        lo, hi = (tokens.lo, tokens.hi) if tokens is not None else (0, n)
         ncc = cluster_mask = pe_feat = tile_meta = None
         if global_attn:
-            rel_pos = (pos[:, None, :, :] + R) - pos[:, :, None, :]  # b n n 2
-            pe_feat = rel_pos_features(rel_pos, R)
+            rel_pos = (pos[:, None, :, :] + R) - pos[:, lo:hi, None, :]
+            pe_feat = rel_pos_features(rel_pos, R)  # b (hi - lo) n 5
         else:
             k = int(math.ceil(n / float(m)))
             nnc = min(int(round(self.nbhd_size / float(m))), k)
@@ -94,7 +104,7 @@ class BasicLayer(nn.Module):
                 feat = feat[:, g_reorder]
                 pos = g_pos[None].expand(b, n, d)
                 ncc = g_ncc[None].expand(b, n, nnc)
-                tile_meta = constant_tile_metadata(g_ncc)
+                tile_meta = constant_tile_metadata(g_ncc, lo, hi)
             else:
                 pos, mean_pos, _, _, reorder = space_filling_cluster(
                     pos, m, h, w, batch_max=_global_batch_max)
@@ -102,13 +112,16 @@ class BasicLayer(nn.Module):
                     feat, 1, reorder.expand(b, n, feat.shape[2]))
                 ncc = knn(pos, mean_pos, nnc)  # b n nnc int32
                 # the kernels' tile unions, once for every block of the stage
-                tile_meta = tile_metadata(ncc)
+                tile_meta = tile_metadata(ncc[:, lo:hi])
             if k * m != n:
                 cluster_mask = (cluster_token_index(ncc, m) < n).to(torch.int32)
 
+        blk_ncc = None if ncc is None else ncc[:, lo:hi]
+        x = comm.slice_tokens(feat, tokens)
         for blk in self.blocks:
-            feat = remat_call(self.remat, blk, feat, global_attn, pe_feat,
-                              ncc, m, pos, tile_meta)
+            x = remat_call(self.remat, blk, x, global_attn, pe_feat, blk_ncc,
+                           m, pos, tile_meta, tokens)
+        feat = comm.gather_tokens(x, tokens)
 
         if self.downsample is not None:
             learned_prob = torch.sigmoid(self.prob_net(feat))

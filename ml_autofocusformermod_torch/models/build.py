@@ -23,31 +23,33 @@ DTYPES = {
 
 def check_switches(config, device, world: Optional[int] = None) -> None:
     """Refuse the JAX package's settings that the port cannot honour,
-    rather than ignore them: sequence parallelism (``TPU.MESH_SEQ > 1``,
-    ROADMAP A11b), a mesh whose sizes do not multiply to the ``world`` of
-    processes (default: the running process group's, 1 without one), a
+    rather than ignore them: a ``(TPU.MESH_DATA, TPU.MESH_MODEL,
+    TPU.MESH_SEQ)`` mesh whose sizes do not multiply to the ``world`` of
+    processes (default: the running process group's, 1 without one; a
+    data size of -1 takes every rank that model x seq leave), a
     ``DATA.BATCH_SIZE`` that the data size does not divide, and
     ``TPU.USE_PALLAS: false`` on the card, which has no kernel-free route
-    (the CPU path is the plain version anyway)."""
+    (the CPU path is the plain version anyway). Every mesh key is
+    honoured: data and tensor parallelism, ZeRO-1 and sequence
+    parallelism (``parallel/``)."""
     tpu = config.TPU
-    if int(tpu.MESH_SEQ) > 1:
-        raise ValueError(f"TPU.MESH_SEQ={tpu.MESH_SEQ}: sequence parallelism "
-                         "is not ported (ROADMAP A11b)")
     if world is None:
         world = dist.get_world_size() if dist.is_initialized() else 1
     data, model = int(tpu.MESH_DATA), int(tpu.MESH_MODEL)
-    if model < 1 or (data != -1 and data < 1):
-        raise ValueError(f"TPU.MESH_DATA={data}, TPU.MESH_MODEL={model}: "
-                         "sizes are positive (-1: every rank left for data)")
+    seq = int(tpu.MESH_SEQ)
+    if model < 1 or seq < 1 or (data != -1 and data < 1):
+        raise ValueError(f"TPU.MESH_DATA={data}, TPU.MESH_MODEL={model}, "
+                         f"TPU.MESH_SEQ={seq}: sizes are positive (-1: "
+                         "every rank left for data)")
     if data == -1:
-        if world % model:
+        if world % (model * seq):
             raise ValueError(f"mesh TPU.MESH_DATA=-1 x TPU.MESH_MODEL="
-                             f"{model} != {world} processes (TPU.MESH_MODEL "
-                             "does not divide them)")
-        data = world // model
-    if data * model != world:
+                             f"{model} x TPU.MESH_SEQ={seq} != {world} "
+                             "processes (model x seq does not divide them)")
+        data = world // (model * seq)
+    if data * model * seq != world:
         raise ValueError(f"mesh TPU.MESH_DATA={data} x TPU.MESH_MODEL="
-                         f"{model} != {world} processes")
+                         f"{model} x TPU.MESH_SEQ={seq} != {world} processes")
     if config.DATA.BATCH_SIZE % data:
         raise ValueError(f"DATA.BATCH_SIZE={config.DATA.BATCH_SIZE} must be "
                          f"divisible by the data size {data}")

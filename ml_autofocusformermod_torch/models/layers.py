@@ -191,6 +191,10 @@ class Dropout(nn.Module):
     ``group`` the layer's model group: the mask is drawn for the whole
     activation, as one process draws it, and sliced to the rank's block, so
     the model ranks' generators stay in step and each drops its own block.
+    Under sequence parallelism ``x`` holds this seq rank's ``tokens``
+    (``parallel/comm.py::TokenRange``) along ``token_dim``: the mask is
+    drawn for all of the stage's tokens and sliced to the rank's, so the
+    seq ranks drop what one process drops.
     """
 
     def __init__(self, p: float = 0.0):
@@ -198,7 +202,8 @@ class Dropout(nn.Module):
         self.p = float(p)
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x, group=None, dim: int = -1):
+    def forward(self, x, group=None, dim: int = -1, tokens=None,
+                token_dim: int = 1):
         if self.p == 0.0 or not self.training:
             return x
         if self.p >= 1.0:
@@ -207,9 +212,12 @@ class Dropout(nn.Module):
         parts = comm.size(group)
         shape = list(x.shape)
         shape[dim] *= parts
+        if tokens is not None:
+            shape[token_dim] = tokens.n
         u = torch.rand(shape, generator=self.generator, device=x.device)
         if parts > 1:
             u = u.chunk(parts, dim=dim)[comm.rank(group)]
+        u = comm.slice_tokens(u, tokens, token_dim)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
@@ -254,11 +262,12 @@ class Mlp(nn.Module):
         self.drop = Dropout(drop)
         self.tp_group = None
 
-    def forward(self, x):
+    def forward(self, x, tokens=None):
         if self.tp_group is not None:
             x = comm.copy_to_model(x, self.tp_group)
-        x = self.drop(F.gelu(self.fc1(x)), self.tp_group)
-        return self.drop(row_parallel(self.fc2, x, self.tp_group))
+        x = self.drop(F.gelu(self.fc1(x)), self.tp_group, tokens=tokens)
+        return self.drop(row_parallel(self.fc2, x, self.tp_group),
+                         tokens=tokens)
 
 
 class ClusterAttention(nn.Module):
@@ -285,7 +294,17 @@ class ClusterAttention(nn.Module):
     attention on them and sums proj's partial products over the group. Its
     dropout seed is offset to its first head
     (``ops/cluster_attention.py::head_offset_seed``), so each rank drops
-    its heads' probabilities as one process drops them.
+    its heads' probabilities as one process drops them; under data
+    parallelism also to the data rank's first image of the global batch
+    (``image_offset_seed``), since the kernels hash the image index.
+
+    Under sequence parallelism (``tokens``, this seq rank's
+    ``parallel/comm.py::TokenRange``) ``feat`` holds the rank's token rows:
+    k and v are gathered over the seq ranks (their gradient summed back),
+    and the queries of the range attend to them, the local mode through
+    the kernels' query range (``nearest_cluster``, ``tile_meta`` and, in
+    the global mode, ``pe_feat`` are the range's rows; ``pos`` is the
+    whole stage's).
     """
 
     def __init__(self, dim, num_heads, rel_pos_width,
@@ -309,15 +328,16 @@ class ClusterAttention(nn.Module):
 
     def forward(self, feat, global_attn: bool, pe_feat=None,
                 nearest_cluster=None, cluster_size: int = 0, pos=None,
-                tile_meta=None):
+                tile_meta=None, tokens=None):
         if self.tp_group is not None:
             feat = comm.copy_to_model(feat, self.tp_group)
-        b, n, _ = feat.shape
+        b, nq, _ = feat.shape
         h = self.num_heads
         c_ = self.q.weight.shape[0] // h
         c = h * c_  # this rank's channels
         q = self.q(feat) * c_**-0.5
-        kv = self.kv(feat)
+        kv = comm.gather_tokens(self.kv(feat), tokens)
+        n = kv.shape[1]
         if not global_attn:
             rate = self.attn_drop.p if self.training else 0.0
             seed = None
@@ -326,16 +346,20 @@ class ClusterAttention(nn.Module):
                 if self.tp_group is not None:  # this rank's heads
                     seed = attention_ops.head_offset_seed(
                         seed, comm.rank(self.tp_group) * h)
+                # this data rank's images of the global batch
+                seed = attention_ops.image_offset_seed(
+                    seed, comm.data_coords()[0] * b)
             out = fused_cluster_attention(
                 q.contiguous(), kv.contiguous(), nearest_cluster, pos,
                 self.pos_embed.weight.t(), self.pos_embed.bias,
                 self.blank_k.reshape(h, c_).t(), self.blank_v.reshape(h, c_),
                 h, cluster_size, self.rel_pos_width, self.clamp_width,
                 drop_rate=rate, drop_seed=seed, meta=tile_meta,
+                q0=tokens.lo if tokens is not None else 0,
             )
         else:
             dt = self.compute_dtype
-            q = q.reshape(b, n, h, c_).transpose(1, 2)  # b h n c_
+            q = q.reshape(b, nq, h, c_).transpose(1, 2)  # b h nq c_
             kv = kv.reshape(b, n, h, 2, c_).permute(3, 0, 2, 1, 4)
             key, v = kv[0], kv[1]
             blank_attn = (
@@ -345,12 +369,14 @@ class ClusterAttention(nn.Module):
             attn = torch.matmul(q, key.transpose(-1, -2)) + bias
             attn = torch.cat([attn, blank_attn], dim=-1)
             attn = torch.softmax(attn.float(), dim=-1).to(dt)
-            attn = self.attn_drop(attn, self.tp_group, dim=1)
+            attn = self.attn_drop(attn, self.tp_group, dim=1, tokens=tokens,
+                                  token_dim=2)
             blank_w = attn[..., -1:]
             out = torch.matmul(attn[..., :-1], v)
             out = out + blank_w * self.blank_v.to(dt).reshape(1, h, 1, c_)
-            out = out.transpose(1, 2).reshape(b, n, c)
-        return self.proj_drop(row_parallel(self.proj, out, self.tp_group))
+            out = out.transpose(1, 2).reshape(b, nq, c)
+        return self.proj_drop(row_parallel(self.proj, out, self.tp_group),
+                              tokens=tokens)
 
 
 class ClusterTransformerBlock(nn.Module):
@@ -375,15 +401,15 @@ class ClusterTransformerBlock(nn.Module):
             self.gamma2 = nn.Parameter(torch.full((dim,), float(layer_scale)))
 
     def forward(self, feat, global_attn, pe_feat, nearest_cluster,
-                cluster_size, pos, tile_meta=None):
+                cluster_size, pos, tile_meta=None, tokens=None):
         x = self.attn(self.norm1(feat), global_attn, pe_feat,
-                      nearest_cluster, cluster_size, pos, tile_meta)
+                      nearest_cluster, cluster_size, pos, tile_meta, tokens)
         if self.use_layer_scale:
             feat = feat + self.drop_path(self.gamma1.to(x.dtype) * x)
-            y = self.mlp(self.norm2(feat))
+            y = self.mlp(self.norm2(feat), tokens)
             return feat + self.drop_path(self.gamma2.to(y.dtype) * y)
         feat = feat + self.drop_path(x)
-        return feat + self.drop_path(self.mlp(self.norm2(feat)))
+        return feat + self.drop_path(self.mlp(self.norm2(feat), tokens))
 
 
 class ClusterMerging(nn.Module):

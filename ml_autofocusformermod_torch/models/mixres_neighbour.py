@@ -29,6 +29,7 @@ from ..ops.cluster_attention import tile_metadata
 from ..ops.cluster_gather import gather_rows
 from ..ops.knn import knn
 from ..ops.sfc import space_filling_cluster
+from ..parallel import comm
 from .layers import ClusterTransformerBlock, LayerNormFp32, Linear, \
     check_remat, rel_pos_features, remat_call
 from .mixres_common import (
@@ -57,7 +58,10 @@ class MixResBasicLayer(nn.Module):
     :func:`tile_metadata` is made for all blocks, and every block runs the
     fused kernel with ``rel_pos_width = 511, clamp_width = 1023``. The
     kernel (and its plain version) expands each cluster to its member rows
-    and excludes the padded slots of the last cluster itself.
+    and excludes the padded slots of the last cluster itself. Under
+    sequence parallelism the blocks run on this seq rank's token range and
+    their output is gathered, as in ``aff.py::BasicLayer``; the clustering
+    and kNN stay whole on every seq rank.
     """
 
     def __init__(self, dim, cluster_size, nbhd_size, depth, num_heads,
@@ -84,10 +88,12 @@ class MixResBasicLayer(nn.Module):
         pos = pos[:, :, 1:]
         b, n, _ = pos.shape
         global_attn = self.nbhd_size >= n
+        tokens = comm.token_range_of(n)
+        lo, hi = (tokens.lo, tokens.hi) if tokens is not None else (0, n)
         ncc = pe_feat = meta = None
         m = 0
         if global_attn:
-            rel_pos = (pos[:, None, :, :] + R) - pos[:, :, None, :]
+            rel_pos = (pos[:, None, :, :] + R) - pos[:, lo:hi, None, :]
             pe_feat = rel_pos_features(torch.clamp(rel_pos, 0, tw - 1), R)
         else:
             m = self.cluster_size
@@ -102,12 +108,14 @@ class MixResBasicLayer(nn.Module):
                     pos, m, h, w)
                 feat = gather_rows(feat, reorder[..., 0])
                 pos_scale = gather_rows(pos_scale, reorder[..., 0])
-            ncc = knn(pos, mean_pos, nnc)
+            ncc = knn(pos, mean_pos, nnc)[:, lo:hi]  # the range's rows
             meta = tile_metadata(ncc)  # once for every block of the stage
+        x = comm.slice_tokens(feat, tokens)
         for blk in self.blocks:
-            feat = remat_call(self.remat, blk, feat, global_attn, pe_feat,
-                              ncc, m, pos, meta)
-        return torch.cat([pos_scale, pos], dim=2), feat
+            x = remat_call(self.remat, blk, x, global_attn, pe_feat, ncc, m,
+                           pos, meta, tokens)
+        return torch.cat([pos_scale, pos], dim=2), comm.gather_tokens(
+            x, tokens)
 
 
 class MixResNeighbour(nn.Module):

@@ -5,6 +5,12 @@ The coarsest (32x32-patch) encoder level and the last decoder level: dense
 pre-LN attention blocks whose FeedForward carries a 3x3 depthwise conv over
 the token grid. The dense attention is plain torch (``torch.matmul`` and an
 f32 softmax), as the JAX package computes it outside any Pallas kernel.
+
+Under sequence parallelism the blocks run on this seq rank's token range
+(register tokens, where a config has them, lead the sequence and so fall
+in the first seq rank's range): the attention's k and v are gathered over
+the seq ranks, and the depthwise conv, which reads the 3x3 neighbours of a
+token on the grid, runs on the gathered grid and keeps the range.
 """
 
 from __future__ import annotations
@@ -60,14 +66,16 @@ class FeedForward(nn.Module):
         self.drop = Dropout(dropout)
         self.tp_group = None
 
-    def forward(self, x, h: int, w: int):
+    def forward(self, x, h: int, w: int, tokens=None):
         if self.tp_group is not None:
             x = comm.copy_to_model(x, self.tp_group)
         x = self.fc1(x)
-        if self.dwconv is not None:
-            x = self.dwconv(x, h, w)
-        x = self.drop(F.gelu(x), self.tp_group)
-        return self.drop(row_parallel(self.fc2, x, self.tp_group))
+        if self.dwconv is not None:  # the whole grid: a range has a halo
+            x = comm.slice_tokens(
+                self.dwconv(comm.gather_tokens(x, tokens), h, w), tokens)
+        x = self.drop(F.gelu(x), self.tp_group, tokens=tokens)
+        return self.drop(row_parallel(self.fc2, x, self.tp_group),
+                         tokens=tokens)
 
 
 class Attention(nn.Module):
@@ -86,20 +94,25 @@ class Attention(nn.Module):
         self.drop = Dropout(dropout)
         self.tp_group = None
 
-    def forward(self, x):
+    def forward(self, x, tokens=None):
         if self.tp_group is not None:
             x = comm.copy_to_model(x, self.tp_group)
-        b, n, _ = x.shape
+        b, nq, _ = x.shape
         h = self.heads
         c_ = self.qkv.weight.shape[0] // (3 * h)
         c = h * c_  # this rank's channels
-        qkv = self.qkv(x).reshape(b, n, 3, h, c_).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]  # b h n c_
+        qkv = self.qkv(x).reshape(b, nq, 3, h, c_).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]  # b h nq c_
+        if tokens is not None:  # every seq rank's keys and values
+            k, v = comm.gather_tokens(torch.stack([k, v]), tokens, dim=3)
         attn = torch.matmul(q, k.transpose(-1, -2)) * c_**-0.5
         attn = torch.softmax(attn.float(), dim=-1).to(self.compute_dtype)
-        out = torch.matmul(self.drop(attn, self.tp_group, dim=1), v)
-        out = out.transpose(1, 2).reshape(b, n, c)
-        return self.drop(row_parallel(self.proj, out, self.tp_group))
+        attn = self.drop(attn, self.tp_group, dim=1, tokens=tokens,
+                         token_dim=2)
+        out = torch.matmul(attn, v)
+        out = out.transpose(1, 2).reshape(b, nq, c)
+        return self.drop(row_parallel(self.proj, out, self.tp_group),
+                         tokens=tokens)
 
 
 class Block(nn.Module):
@@ -119,14 +132,14 @@ class Block(nn.Module):
             self.gamma1 = nn.Parameter(torch.full((dim,), float(layer_scale)))
             self.gamma2 = nn.Parameter(torch.full((dim,), float(layer_scale)))
 
-    def forward(self, x, h: int, w: int):
-        y = self.attn(self.norm1(x))
+    def forward(self, x, h: int, w: int, tokens=None):
+        y = self.attn(self.norm1(x), tokens)
         if self.use_layer_scale:
             x = x + self.drop_path(self.gamma1.to(y.dtype) * y)
-            z = self.mlp(self.norm2(x), h, w)
+            z = self.mlp(self.norm2(x), h, w, tokens)
             return x + self.drop_path(self.gamma2.to(z.dtype) * z)
         x = x + self.drop_path(y)
-        return x + self.drop_path(self.mlp(self.norm2(x), h, w))
+        return x + self.drop_path(self.mlp(self.norm2(x), h, w, tokens))
 
 
 class MixResViT(nn.Module):
@@ -209,9 +222,11 @@ class MixResViT(nn.Module):
         if self.num_register_tokens:
             reg = self.register_tokens.to(x.dtype)
             x = torch.cat([reg.expand(b, *reg.shape[1:]), x], dim=1)
+        tokens = comm.token_range_of(x.shape[1])
+        x = comm.slice_tokens(x, tokens)
         for blk in self.layers["blocks"]:
-            x = remat_call(self.remat, blk, x, patched[0], patched[1])
-        x = x[:, self.num_register_tokens:]
+            x = remat_call(self.remat, blk, x, patched[0], patched[1], tokens)
+        x = comm.gather_tokens(x, tokens)[:, self.num_register_tokens:]
 
         name = self.out_features[0]
         outs: Dict[str, Any] = {

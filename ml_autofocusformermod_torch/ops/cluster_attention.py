@@ -30,6 +30,15 @@ model calls it where ``ncc`` is made and hands it to every block of the
 stage, forward and backward; :func:`constant_tile_metadata` keeps that of
 a constant ``ncc``, such as the on-grid stage's); without it the wrappers
 compute it themselves.
+
+Every entry takes a query range (sequence parallelism,
+``parallel/__init__.py``): ``q`` (and ``ncc``, the output, the statistics,
+``g_out`` and ``dq``) may hold ``nq`` rows of each image, its tokens ``[q0,
+q0 + nq)``, while ``kv`` and ``pos`` hold all ``n``. A query reads its
+position and its dropout row at its token, its neighbours' k and v rows
+by token, and the backward's ``dkv`` has all ``n`` rows: the range's
+queries' share of the gradient. The tile metadata is that of the range's
+``ncc``. ``q0 = 0`` with ``nq = n`` is the plain call, bit for bit.
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ __all__ = ["fused_cluster_attention", "cluster_attention_reference",
            "cluster_attention_backward",
            "cluster_attention_backward_reference", "cluster_attention_forward",
            "offset_features", "drop_keep", "draw_drop_seed", "head_offset_seed",
-           "saved_mode",
+           "image_offset_seed", "saved_mode",
            "TILE", "TileMeta", "tile_metadata", "constant_tile_metadata",
            "union_rows", "BLANK_COL"]
 
@@ -126,15 +135,24 @@ def head_offset_seed(seed: int, head0: int) -> int:
     return (int(seed) + head0 * _HEAD_MUL) & _MASK32
 
 
-def _drop_planes(ncc, cs, num_heads, drop, device, img0=0):
+def image_offset_seed(seed: int, img0: int) -> int:
+    """The seed whose masks at image ``i`` are :func:`drop_keep`'s of
+    ``seed`` at image ``img0 + i``: the hash adds ``img * _IMG_MUL`` to the
+    seed before it mixes, so a data rank whose batch starts at image
+    ``img0`` of the global batch drops as one process does."""
+    return (int(seed) + img0 * _IMG_MUL) & _MASK32
+
+
+def _drop_planes(ncc, cs, num_heads, drop, device, img0=0, q0=0):
     """The keep/scale planes of ``drop = (rate, seed)``: of the slots, (b,
-    h, n, m), and of the blank, (b, h, n, 1), float32; the images are
-    ``img0 + [0, b)`` of the batch."""
+    h, nq, m), and of the blank, (b, h, nq, 1), float32; the images are
+    ``img0 + [0, b)`` of the batch, the query rows ``q0 + [0, nq)`` of
+    the tokens (``ncc`` holds ``nq`` rows)."""
     rate, seed = drop
-    b, n, _ = ncc.shape
+    b, nq, _ = ncc.shape
     img = torch.arange(img0, img0 + b, device=device)[:, None, None, None]
     head = torch.arange(num_heads, device=device)[None, :, None, None]
-    rows = torch.arange(n, device=device)[None, None, :, None]
+    rows = torch.arange(q0, q0 + nq, device=device)[None, None, :, None]
     cols = cluster_token_index(ncc, cs)[:, None]  # b 1 n m
     return (drop_keep(seed, img, head, rows, cols, rate),
             drop_keep(seed, img, head, rows, BLANK_COL, rate))
@@ -192,13 +210,16 @@ tile_metadata.calls = 0
 _CONST_META = WeakIdKeyDictionary()
 
 
-def constant_tile_metadata(ncc):
-    """:func:`tile_metadata` of a constant (n, nnc) ``ncc`` that is
-    broadcast over the batch (the on-grid stage's), computed once per
-    tensor and kept while the tensor lives."""
-    if ncc not in _CONST_META:
-        _CONST_META[ncc] = tile_metadata(ncc[None])
-    return _CONST_META[ncc]
+def constant_tile_metadata(ncc, lo: int = 0, hi: Optional[int] = None):
+    """:func:`tile_metadata` of the rows ``[lo, hi)`` (default: all) of a
+    constant (n, nnc) ``ncc`` that is broadcast over the batch (the
+    on-grid stage's), computed once per tensor and range and kept while
+    the tensor lives."""
+    hi = ncc.shape[0] if hi is None else hi
+    per = _CONST_META.setdefault(ncc, {})
+    if (lo, hi) not in per:
+        per[(lo, hi)] = tile_metadata(ncc[None, lo:hi])
+    return per[(lo, hi)]
 
 
 def offset_features(dx, dy):
@@ -211,36 +232,39 @@ def offset_features(dx, dy):
     return torch.stack([dx, dy, dist, sin, cos], dim=-1)
 
 
-def _rel_feat(pos, ncc, cs, rel_width, clamp_width):
-    """(b, n, m, 5) rel-pos features of each query's neighbourhood slots
-    (JAX package ``clusten_pallas.py:2920``)."""
-    pos_g = gather_clusters(pos[:, None], ncc, cs)[:, 0]  # b n m 2
-    rel = pos_g - pos[:, :, None, :]
+def _rel_feat(pos, ncc, cs, rel_width, clamp_width, q0=0):
+    """(b, nq, m, 5) rel-pos features of the neighbourhood slots of the
+    queries at tokens ``q0 + [0, nq)`` (JAX package
+    ``clusten_pallas.py:2920``)."""
+    pos_g = gather_clusters(pos[:, None], ncc, cs)[:, 0]  # b nq m 2
+    rel = pos_g - pos[:, q0:q0 + ncc.shape[1], None, :]
     if clamp_width:
         rel = torch.clamp(rel + rel_width, 0, clamp_width - 1) - rel_width
     return offset_features(rel[..., 0], rel[..., 1])
 
 
 def _softmax_parts(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, num_heads,
-                   cs, rel_width, clamp_width, stats=None):
+                   cs, rel_width, clamp_width, stats=None, q0=0):
     """The pieces the forward and backward share, in the accumulation type
     (f32, or f64 for f64 inputs): head-split q, gathered k and v, the
     rel-pos features, the normalised probabilities of the slots and of the
     blank token (``clusten_pallas.py:3080-3106``; 0 at padded slots), and
-    the softmax max and denominator, (b, h, n, 1) each. With ``stats``
-    (b, n, 2h), a forward's saved max (lanes [0, h)) and denominator
-    (lanes [h, 2h)) take the place of the row's own."""
-    b, n, c = q.shape
+    the softmax max and denominator, (b, h, nq, 1) each, of the queries at
+    tokens ``q0 + [0, nq)``. With ``stats`` (b, nq, 2h), a forward's saved
+    max (lanes [0, h)) and denominator (lanes [h, 2h)) take the place of
+    the row's own."""
+    b, nq, c = q.shape
+    n = kv.shape[1]
     h = num_heads
     c_ = c // h
     acc = torch.promote_types(q.dtype, torch.float32)
     pos = pos.to(acc)
-    qh = q.to(acc).reshape(b, n, h, c_).permute(0, 2, 1, 3)  # b h n c_
+    qh = q.to(acc).reshape(b, nq, h, c_).permute(0, 2, 1, 3)  # b h nq c_
     kvh = kv.to(acc).reshape(b, n, h, 2, c_)
     kh = kvh[..., 0, :].permute(0, 2, 1, 3)
     vh = kvh[..., 1, :].permute(0, 2, 1, 3)
 
-    feat5 = _rel_feat(pos, ncc, cs, rel_width, clamp_width)  # b n m 5
+    feat5 = _rel_feat(pos, ncc, cs, rel_width, clamp_width, q0)  # b nq m 5
     bias = (
         torch.einsum("bnmf,fh->bhnm", feat5, pe_kernel.to(acc))
         + pe_bias.to(acc)[None, :, None, None]
@@ -267,7 +291,7 @@ def _softmax_parts(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, num_heads,
 def cluster_attention_reference(q, kv, ncc, pos, pe_kernel, pe_bias,
                                 blank_k, blank_v, num_heads, cs, rel_width,
                                 clamp_width=0, drop=None, want_stats=False,
-                                img0=0):
+                                img0=0, q0=0):
     """Plain PyTorch version of the forward, in f32 (f64 for f64 inputs).
 
     Follows the algebra of the JAX package's oracle
@@ -280,15 +304,15 @@ def cluster_attention_reference(q, kv, ncc, pos, pe_kernel, pe_bias,
     blank logit (lane hi) and the denominator, blank included (lane
     h + hi), in the accumulation type, as JAX's stats output. ``img0``:
     the index in the batch of the first image (the masks of a batch
-    chunk).
+    chunk). ``q0``: the token of q's first row (the query range).
     """
     b, n, c = q.shape
     _, _, vg, _, p, pb, mx, denom = _softmax_parts(
         q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, num_heads, cs,
-        rel_width, clamp_width)
+        rel_width, clamp_width, q0=q0)
     if drop is not None:
         keep, keep_b = _drop_planes(ncc, cs, num_heads, drop, q.device,
-                                    img0)
+                                    img0, q0)
         p = p * keep.to(p.dtype)
         pb = pb * keep_b.to(p.dtype)
     out = torch.einsum("bhim,bhimc->bhic", p, vg)
@@ -304,7 +328,7 @@ def cluster_attention_backward_reference(q, kv, ncc, pos, pe_kernel,
                                          pe_bias, blank_k, blank_v, g_out,
                                          num_heads, cs, rel_width,
                                          clamp_width=0, saved=None,
-                                         drop=None, img0=0):
+                                         drop=None, img0=0, q0=0):
     """Plain PyTorch version of the backward, formula for formula the JAX
     package's oracle backward (``clusten_pallas.py:3080-3149``).
 
@@ -313,8 +337,8 @@ def cluster_attention_backward_reference(q, kv, ncc, pos, pe_kernel,
     saved max and denominator, and S = rowsum(g * out) (the delta trick)
     replaces sum_s p_s dp_s + pb dpb. ``drop = (rate, seed)`` replays the
     forward's dropout: with M the keep/scale, dV = (P M)^T g, dP' = M (g
-    V^T) and dL = P (dP' - S), the blank alike; ``img0`` as for the
-    forward.
+    V^T) and dL = P (dP' - S), the blank alike; ``img0`` and ``q0`` as
+    for the forward (``dkv`` has all ``n`` rows of ``kv``).
 
     Returns ``(dq, dkv, d_pe_kernel, d_pe_bias, d_blank_k, d_blank_v)``,
     each in its input's dtype. d_pe_bias is summed as -sum(dlb), the
@@ -322,16 +346,18 @@ def cluster_attention_backward_reference(q, kv, ncc, pos, pe_kernel,
     scatter into dkv is an ``index_add_`` over the slots' token rows
     (deterministic on the CPU).
     """
-    b, n, c = q.shape
+    b, nq, c = q.shape
+    n = kv.shape[1]
     h = num_heads
     c_ = c // h
     nnc = ncc.shape[-1]
     m = nnc * cs
     qh, kg, vg, feat5, p, pb, _, _ = _softmax_parts(
         q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, num_heads, cs,
-        rel_width, clamp_width, stats=None if saved is None else saved[1])
+        rel_width, clamp_width, stats=None if saved is None else saved[1],
+        q0=q0)
     acc = p.dtype
-    goh = g_out.to(acc).reshape(b, n, h, c_).permute(0, 2, 1, 3)
+    goh = g_out.to(acc).reshape(b, nq, h, c_).permute(0, 2, 1, 3)
     bk = blank_k.to(acc).t()  # (h, c_)
     bv = blank_v.to(acc)  # (h, c_)
 
@@ -340,7 +366,7 @@ def cluster_attention_backward_reference(q, kv, ncc, pos, pe_kernel,
     pk, pbk = p, pb  # the probabilities as the output weighed them
     if drop is not None:
         keep, keep_b = _drop_planes(ncc, cs, num_heads, drop, q.device,
-                                    img0)
+                                    img0, q0)
         dp = dp * keep.to(acc)
         dpb = dpb * keep_b.to(acc)
         pk = p * keep.to(acc)
@@ -348,7 +374,7 @@ def cluster_attention_backward_reference(q, kv, ncc, pos, pe_kernel,
     if saved is None:
         s = (dp * p).sum(-1, keepdim=True) + dpb * pb
     else:
-        outh = saved[0].to(acc).reshape(b, n, h, c_).permute(0, 2, 1, 3)
+        outh = saved[0].to(acc).reshape(b, nq, h, c_).permute(0, 2, 1, 3)
         s = (goh * outh).sum(-1, keepdim=True)
     dlogits = p * (dp - s)  # zero at padded slots, where p is 0
     dlb = pb * (dpb - s)  # b h n 1
@@ -369,21 +395,22 @@ def cluster_attention_backward_reference(q, kv, ncc, pos, pe_kernel,
     np_ = -(-n // cs) * cs
     rows = cluster_token_index(ncc, cs)  # b n m
     rows = rows + torch.arange(b, device=rows.device)[:, None, None] * np_
-    dkg = qh[:, :, :, None, :] * dlogits[..., None]  # b h n m c_
+    dkg = qh[:, :, :, None, :] * dlogits[..., None]  # b h nq m c_
     dvg = pk[..., None] * goh[:, :, :, None, :]
-    src = torch.stack([dkg, dvg], dim=-2)  # b h n m 2 c_
-    src = src.permute(0, 2, 3, 1, 4, 5).reshape(b * n * m, h, 2, c_)
+    src = torch.stack([dkg, dvg], dim=-2)  # b h nq m 2 c_
+    src = src.permute(0, 2, 3, 1, 4, 5).reshape(b * nq * m, h, 2, c_)
     dkv = torch.zeros(b * np_, h, 2, c_, dtype=acc, device=q.device)
     dkv.index_add_(0, rows.reshape(-1), src)
     dkv = dkv.reshape(b, np_, 2 * c)[:, :n]
-    dq = dqh.permute(0, 2, 1, 3).reshape(b, n, c)
+    dq = dqh.permute(0, 2, 1, 3).reshape(b, nq, c)
     return (dq.to(q.dtype), dkv.to(kv.dtype),
             d_pe_kernel.to(pe_kernel.dtype), d_pe_bias.to(pe_bias.dtype),
             d_blank_k.to(blank_k.dtype), d_blank_v.to(blank_v.dtype))
 
 
-def _check_cuda_args(q, kv, ncc, pos, num_heads):
-    b, n, c = q.shape
+def _check_cuda_args(q, kv, ncc, pos, num_heads, q0=0):
+    b, nq, c = q.shape
+    n = kv.shape[1] if kv.dim() == 3 else -1
     dev = q.device
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -391,10 +418,14 @@ def _check_cuda_args(q, kv, ncc, pos, num_heads):
         raise TypeError(f"kv dtype {kv.dtype} != q dtype {q.dtype}")
     if c % num_heads:
         raise ValueError(f"channels {c} not divisible by {num_heads} heads")
-    if tuple(kv.shape) != (b, n, 2 * c):
-        raise ValueError(f"kv shape {tuple(kv.shape)} != {(b, n, 2 * c)}")
-    if ncc.dtype != torch.int32 or ncc.dim() != 3 or ncc.shape[:2] != (b, n):
-        raise ValueError(f"ncc must be int32 (b, n, nnc), got "
+    if kv.dim() != 3 or tuple(kv.shape) != (b, n, 2 * c):
+        raise ValueError(f"kv shape {tuple(kv.shape)} != (b, n, 2c) with "
+                         f"b, 2c = {b}, {2 * c}")
+    if not 0 <= q0 <= q0 + nq <= n:
+        raise ValueError(f"query rows [{q0}, {q0 + nq}) outside the {n} "
+                         "tokens of kv")
+    if ncc.dtype != torch.int32 or ncc.dim() != 3 or ncc.shape[:2] != (b, nq):
+        raise ValueError(f"ncc must be int32 (b, nq, nnc), got "
                          f"{ncc.dtype} {tuple(ncc.shape)}")
     if pos.dtype != torch.float32 or tuple(pos.shape) != (b, n, 2):
         raise ValueError(f"pos must be float32 (b, n, 2), got "
@@ -488,15 +519,16 @@ def _drop_args(drop, c_, *rows):
 
 # ---------------------------------------------------------------- ops ----
 # Each kernel entry is a dispatcher op of the ``mlaff`` namespace, so that
-# torch.export, FlopCounterMode, selective checkpointing and the profiler
-# see it: a CPU kernel (the plain version), a CUDA kernel (the launch,
-# counted), a fake kernel (shapes and dtypes only) and, for the forward,
-# an autograd formula. The tile metadata travels as its three tensors
-# (absent: the CUDA kernel makes it), dropout as its rate (0: none) and
-# host seed. The backward returns the four small parameters' gradients as
-# one flat vector (d_pe_kernel, d_pe_bias, d_blank_k, d_blank_v, each
-# row-major), the kernel's per-tile rows summed once: an op's outputs may
-# not share storage, and four copies would cost four launches.
+# torch.export, FlopCounterMode, selective checkpointing and the profiler see
+# it: a CPU kernel (the plain version), a CUDA kernel (the launch, counted), a
+# fake kernel (shapes and dtypes only) and, for the forward, an autograd
+# formula. The tile metadata travels as its three tensors (absent: the CUDA
+# kernel makes it), dropout as its rate (0: none) and host seed, the query
+# range as the token ``q0`` of q's first row. The backward returns the four
+# small parameters' gradients as one flat vector (d_pe_kernel, d_pe_bias,
+# d_blank_k, d_blank_v, each row-major), the kernel's per-tile rows summed
+# once: an op's outputs may not share storage, and four copies would cost four
+# launches.
 
 _LIB = torch.library.Library("mlaff", "FRAGMENT")
 _LIB.define(
@@ -504,13 +536,13 @@ _LIB.define(
     "Tensor pe_kernel, Tensor pe_bias, Tensor blank_k, Tensor blank_v, "
     "Tensor? ucl, Tensor? ucount, Tensor? nidx, int num_heads, int cs, "
     "int rel_width, int clamp_width, float drop_rate, int drop_seed, "
-    "bool want_stats) -> (Tensor out, Tensor stats)")
+    "bool want_stats, int q0=0) -> (Tensor out, Tensor stats)")
 _LIB.define(
     "cluster_attention_bwd(Tensor q, Tensor kv, Tensor ncc, Tensor pos, "
     "Tensor pe_kernel, Tensor pe_bias, Tensor blank_k, Tensor blank_v, "
     "Tensor? ucl, Tensor? ucount, Tensor? nidx, Tensor g_out, Tensor? out, "
     "Tensor? stats, int num_heads, int cs, int rel_width, int clamp_width, "
-    "float drop_rate, int drop_seed) -> (Tensor dq, Tensor dkv, "
+    "float drop_rate, int drop_seed, int q0=0) -> (Tensor dq, Tensor dkv, "
     "Tensor d_small)")
 
 
@@ -528,11 +560,11 @@ def _stats_dtype(q):
 
 def _fwd_cpu(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
              ucount, nidx, num_heads, cs, rel_width, clamp_width, drop_rate,
-             drop_seed, want_stats):
+             drop_seed, want_stats, q0=0):
     res = cluster_attention_reference(
         q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, num_heads, cs,
         rel_width, clamp_width, drop=_drop(drop_rate, drop_seed),
-        want_stats=want_stats)
+        want_stats=want_stats, q0=q0)
     if want_stats:
         return res
     return res, q.new_empty((0,), dtype=_stats_dtype(q))
@@ -540,19 +572,20 @@ def _fwd_cpu(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
 
 def _fwd_cuda(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
               ucount, nidx, num_heads, cs, rel_width, clamp_width, drop_rate,
-              drop_seed, want_stats):
-    _check_cuda_args(q, kv, ncc, pos, num_heads)
-    b, n, c = q.shape
+              drop_seed, want_stats, q0=0):
+    _check_cuda_args(q, kv, ncc, pos, num_heads, q0)
+    b, nq, c = q.shape
+    n = kv.shape[1]
     h = num_heads
     drop = _drop(drop_rate, drop_seed)
     meta, batched = _meta_args(_meta(ucl, ucount, nidx), ncc)
     params = _small_params(q, h, pe_kernel, pe_bias, blank_k, blank_v)
     out = torch.empty_like(q)
-    stats = torch.empty((b, n, 2 * h) if want_stats else (0,),
+    stats = torch.empty((b, nq, 2 * h) if want_stats else (0,),
                         dtype=torch.float32, device=q.device)
     fn = _build.library("cluster_attention").cluster_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
                    + [ctypes.c_longlong] + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
@@ -560,19 +593,20 @@ def _fwd_cuda(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
         _launch(fn, "cluster_attention_fwd", q.data_ptr(), kv.data_ptr(),
                 pos.data_ptr(), *(t.data_ptr() for t in meta),
                 *(t.data_ptr() for t in params), out.data_ptr(),
-                stats.data_ptr() if want_stats else None, b, n, h,
+                stats.data_ptr() if want_stats else None, b, n, nq, q0, h,
                 c // h, ncc.shape[2], cs, int(rel_width), int(clamp_width),
                 pos.stride(0), batched, _DTYPE_CODE[q.dtype],
                 *_drop_args(drop, c // h, q, kv, out), stream)
     fused_cluster_attention.launches += 1
     fused_cluster_attention.stats_launches += want_stats
     fused_cluster_attention.drop_launches += drop is not None
+    fused_cluster_attention.range_launches += nq < n
     return out, stats
 
 
 def _fwd_fake(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
               ucount, nidx, num_heads, cs, rel_width, clamp_width, drop_rate,
-              drop_seed, want_stats):
+              drop_seed, want_stats, q0=0):
     b, n, _ = q.shape
     return (torch.empty_like(q, memory_format=torch.contiguous_format),
             q.new_empty((b, n, 2 * num_heads) if want_stats else (0,),
@@ -594,35 +628,39 @@ def _check_saved(q, saved, h):
 
 def _bwd_cpu(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
              ucount, nidx, g_out, out, stats, num_heads, cs, rel_width,
-             clamp_width, drop_rate, drop_seed):
+             clamp_width, drop_rate, drop_seed, q0=0):
     dq, dkv, *small = cluster_attention_backward_reference(
         q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, g_out,
         num_heads, cs, rel_width, clamp_width,
         saved=None if out is None else (out, stats),
-        drop=_drop(drop_rate, drop_seed))
+        drop=_drop(drop_rate, drop_seed), q0=q0)
     return (dq.contiguous(), dkv.contiguous(),
             torch.cat([t.reshape(-1) for t in small]))
 
 
 def _bwd_cuda(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
               ucount, nidx, g_out, out, stats, num_heads, cs, rel_width,
-              clamp_width, drop_rate, drop_seed):
-    _check_cuda_args(q, kv, ncc, pos, num_heads)
+              clamp_width, drop_rate, drop_seed, q0=0):
+    _check_cuda_args(q, kv, ncc, pos, num_heads, q0)
     if g_out.dtype != q.dtype or g_out.shape != q.shape:
         raise ValueError(f"g_out must match q: {g_out.dtype} "
                          f"{tuple(g_out.shape)} vs {q.dtype} {tuple(q.shape)}")
     if g_out.device != q.device or not g_out.is_contiguous():
         raise ValueError("g_out must be contiguous on q's device")
-    b, n, c = q.shape
+    b, nq, c = q.shape
+    n = kv.shape[1]
     h = num_heads
     c_ = c // h
     saved = None if out is None else (out, stats)
     if saved is not None:
         _check_saved(q, saved, h)
+    if b * nq == 0:  # no query: nothing reads kv or the parameters
+        return (torch.empty_like(q), torch.zeros_like(kv),
+                pe_kernel.new_zeros((6 * h + 2 * c,)))
     drop = _drop(drop_rate, drop_seed)
     meta, batched = _meta_args(_meta(ucl, ucount, nidx), ncc)
     params = _small_params(q, h, pe_kernel, pe_bias, blank_k, blank_v)
-    nt = -(-n // TILE)
+    nt = -(-nq // TILE)
     ucap = union_rows(meta, cs)
     f32 = dict(dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
@@ -633,7 +671,7 @@ def _bwd_cuda(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
             else "cluster_attention_bwd_saved")
     fn = getattr(_build.library(name), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
                    + [ctypes.c_longlong] + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
@@ -644,7 +682,7 @@ def _bwd_cuda(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
                 *((None, None) if saved is None
                   else (t.data_ptr() for t in saved)),
                 dq.data_ptr(), dkv.data_ptr(), part.data_ptr(),
-                rows.data_ptr(), b, n, h, c_, ncc.shape[2], cs,
+                rows.data_ptr(), b, n, nq, q0, h, c_, ncc.shape[2], cs,
                 int(rel_width), int(clamp_width), pos.stride(0), batched,
                 ucap, _DTYPE_CODE[q.dtype],
                 *_drop_args(drop, c_, q, kv, g_out, *(saved or ())),
@@ -652,12 +690,13 @@ def _bwd_cuda(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
     cluster_attention_backward.launches += 1
     cluster_attention_backward.saved_launches += saved is not None
     cluster_attention_backward.drop_launches += drop is not None
+    cluster_attention_backward.range_launches += nq < n
     return dq, dkv, rows.sum(0).to(pe_kernel.dtype)
 
 
 def _bwd_fake(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
               ucount, nidx, g_out, out, stats, num_heads, cs, rel_width,
-              clamp_width, drop_rate, drop_seed):
+              clamp_width, drop_rate, drop_seed, q0=0):
     return (q.new_empty(q.shape), kv.new_empty(kv.shape),
             pe_kernel.new_empty((6 * num_heads + 2 * q.shape[2],)))
 
@@ -665,8 +704,9 @@ def _bwd_fake(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl,
 def _fwd_setup(ctx, inputs, output):
     (q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, ucl, ucount,
      nidx, num_heads, cs, rel_width, clamp_width, drop_rate, drop_seed,
-     want_stats) = inputs
+     want_stats, q0) = inputs
     ctx.args = (num_heads, cs, rel_width, clamp_width)
+    ctx.q0 = q0
     ctx.drop = _drop(drop_rate, drop_seed)
     ctx.saved_mode = want_stats
     ctx.mark_non_differentiable(output[1])
@@ -683,8 +723,8 @@ def _fwd_backward(ctx, g_out, _g_stats):
     dq, dkv, dpk, dpb, dbk, dbv = cluster_attention_backward(
         *s[:8], g_out.to(s[0].dtype).contiguous(), *ctx.args,
         meta=_meta(*s[8:11]), saved=tuple(s[11:]) if ctx.saved_mode else None,
-        drop=ctx.drop)
-    return (dq, dkv, None, None, dpk, dpb, dbk, dbv) + (None,) * 10
+        drop=ctx.drop, q0=ctx.q0)
+    return (dq, dkv, None, None, dpk, dpb, dbk, dbv) + (None,) * 11
 
 
 _LIB.impl("cluster_attention_fwd", _fwd_cpu, "CPU")
@@ -703,40 +743,44 @@ torch.library.register_autograd("mlaff::cluster_attention_fwd",
 def cluster_attention_forward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
                               blank_v, num_heads, cs, rel_width,
                               clamp_width=0, meta=None, drop=None,
-                              want_stats=False):
+                              want_stats=False, q0=0):
     """The forward, through the op ``mlaff::cluster_attention_fwd``: the
     CUDA kernel on a CUDA tensor (counted in
-    ``fused_cluster_attention.launches``, and in its ``stats_launches``
-    and ``drop_launches`` where it writes the statistics or drops), the
+    ``fused_cluster_attention.launches``, and in its ``stats_launches``,
+    ``drop_launches`` and ``range_launches`` where it writes the
+    statistics, drops or takes a proper part of the tokens), the
     plain version on the CPU. ``drop = (rate, seed)`` with a host integer
-    seed; ``want_stats``: also return the (b, n, 2h) f32 statistics of
-    :func:`cluster_attention_reference`. Differentiable (the op's autograd
-    formula), the statistics excepted."""
+    seed; ``want_stats``: also return the (b, nq, 2h) f32 statistics of
+    :func:`cluster_attention_reference`; ``q0``: the token of q's first
+    row (the query range). Differentiable (the op's autograd formula), the
+    statistics excepted."""
     rate, seed = drop if drop is not None else (0.0, 0)
     meta = meta if meta is not None else (None, None, None)
     out, stats = torch.ops.mlaff.cluster_attention_fwd(
         q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, *meta,
         num_heads, cs, int(rel_width), int(clamp_width), float(rate),
-        int(seed), bool(want_stats))
+        int(seed), bool(want_stats), int(q0))
     return (out, stats) if want_stats else out
 
 
 def cluster_attention_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
                                blank_v, g_out, num_heads, cs, rel_width,
                                clamp_width=0, meta=None, saved=None,
-                               drop=None):
+                               drop=None, q0=0):
     """Gradients of the fused attention with respect to ``q, kv, pe_kernel,
     pe_bias, blank_k, blank_v``, each in its input's dtype, through the op
     ``mlaff::cluster_attention_bwd``.
 
     ``saved = (out, stats)``: the forward's output and statistics, the
     saved-stats mode; None recomputes them. ``drop = (rate, seed)``:
-    the forward's dropout, replayed.
+    the forward's dropout, replayed. ``q0``: the query range's first
+    token; ``dkv`` then holds the range's share of every token's gradient.
 
     On a CUDA tensor this launches ``csrc/cluster_attention_bwd_saved.cu``
     with ``saved``, ``csrc/cluster_attention_bwd.cu`` without (and
     adds one to ``cluster_attention_backward.launches``, and to its
-    ``saved_launches`` and ``drop_launches`` in those modes), with
+    ``saved_launches``, ``drop_launches`` and ``range_launches`` in those
+    modes), with
     ``meta`` the :class:`TileMeta` of ``ncc`` (computed when None); on a
     CPU tensor it runs :func:`cluster_attention_backward_reference`. The
     CUDA path adds no float atomics: a repeated call gives the same bits.
@@ -750,7 +794,7 @@ def cluster_attention_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
     dq, dkv, small = torch.ops.mlaff.cluster_attention_bwd(
         q, kv, ncc, pos, pe_kernel, pe_bias, blank_k, blank_v, *meta, g_out,
         out, stats, num_heads, cs, int(rel_width), int(clamp_width),
-        float(rate), int(seed))
+        float(rate), int(seed), int(q0))
     params = (pe_kernel, pe_bias, blank_k, blank_v)
     return (dq, dkv, *(d.view(p.shape).to(p.dtype) for d, p in zip(
         torch.split(small, [p.numel() for p in params]), params)))
@@ -759,20 +803,22 @@ def cluster_attention_backward(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
 cluster_attention_backward.launches = 0
 cluster_attention_backward.saved_launches = 0
 cluster_attention_backward.drop_launches = 0
+cluster_attention_backward.range_launches = 0
 
 
 def fused_cluster_attention(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
                             blank_v, num_heads, cs, rel_width, clamp_width=0,
-                            drop_rate=0.0, drop_seed=None, meta=None):
+                            drop_rate=0.0, drop_seed=None, meta=None, q0=0):
     """Fused local cluster attention, differentiable in ``q, kv, pe_kernel,
     pe_bias, blank_k, blank_v``.
 
     Args:
-        q: (b, n, c) pre-scaled queries, token-major (head hi occupies
+        q: (b, nq, c) pre-scaled queries, token-major (head hi occupies
             channels [hi*c_, (hi+1)*c_), c_ = c // num_heads); cluster-ordered
-            rows. float32 or bfloat16 (float64 on the CPU).
+            rows, the tokens ``[q0, q0 + nq)`` (nq = n: all). float32 or
+            bfloat16 (float64 on the CPU).
         kv: (b, n, 2c) fused keys/values, channel structure (h, 2, c_).
-        ncc: (b, n, nnc) int32 nearest-cluster indices.
+        ncc: (b, nq, nnc) int32 nearest-cluster indices of q's rows.
         pos: (b, n, 2) float32 token positions (cluster-ordered).
         pe_kernel: (5, h) pos_embed weights; pe_bias: (h,).
         blank_k: (c_, h) blank-key slices; blank_v: (h, c_) blank values.
@@ -789,9 +835,10 @@ def fused_cluster_attention(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
             its shapes are checked: metadata of another ``ncc`` gives
             attention over the wrong neighbourhoods. The CPU path does not
             use it.
+        q0: the token of q's first row (the query range; 0 by default).
 
     Returns:
-        out (b, n, c) in q's dtype, the blank-token contribution included.
+        out (b, nq, c) in q's dtype, the blank-token contribution included.
         When autograd records the call, the backward takes the forward's
         softmax statistics unless ``MLAFF_BWD_SAVED=0`` (:func:`saved_mode`).
     """
@@ -811,10 +858,11 @@ def fused_cluster_attention(q, kv, ncc, pos, pe_kernel, pe_bias, blank_k,
              and any(t.requires_grad for t in (q, kv, *small)))
     res = cluster_attention_forward(
         q, kv, ncc, pos, *small, num_heads, cs, rel_width, clamp_width, meta,
-        drop, want_stats=stats)
+        drop, want_stats=stats, q0=q0)
     return res[0] if stats else res
 
 
 fused_cluster_attention.launches = 0
 fused_cluster_attention.stats_launches = 0
 fused_cluster_attention.drop_launches = 0
+fused_cluster_attention.range_launches = 0

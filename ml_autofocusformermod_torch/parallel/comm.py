@@ -1,5 +1,5 @@
-"""The collectives of the data and model axes, differentiable where the
-model needs a gradient through them.
+"""The collectives of the data, model and seq axes, differentiable where
+the model needs a gradient through them.
 
 * :func:`all_reduce`: the sum with its gradient, the max without one;
 * Megatron's f and g pair: :func:`copy_to_model` (identity forward,
@@ -9,18 +9,27 @@ model needs a gradient through them.
 * :func:`all_gather` along a dimension, and :func:`mirror`, the tensor of
   the mirror rank ``W-1-r`` (mixup's partner rows);
 * :func:`all_reduce_mean_`, the data-parallel mean of the gradients in a
-  few flat buckets.
+  few flat buckets;
+* the seq axis's pair (:class:`TokenRange`, :func:`token_range_of`):
+  :func:`slice_tokens`, this rank's token rows (its backward is the
+  slice's own: the gradient on the rank's rows, zero elsewhere), and
+  :func:`gather_tokens`, every rank's rows put together (all-gather
+  forward, reduce-scatter backward: the sum over the seq ranks of the
+  gradient, kept on the rank's rows).
 
 Every one returns its input (or does nothing) when the group is None or
 has one rank, so a single process runs exactly the ops it runs without
 this module.
 
-Routes: NCCL, and gloo on CPU tensors, use the native collectives. Gloo
-on CUDA tensors implements only ``broadcast`` and ``all_reduce``, so there
-an all-gather is an all-reduce sum of a zero buffer in which each rank
-fills its own slot (exact: the other slots add zeros); half-precision
-tensors travel as float32 on that route. The route is chosen by the
-backend's name, never after a failure.
+Routes: NCCL, and gloo on CPU tensors, use the native collectives
+(``all_gather``; ``reduce_scatter_tensor`` of token rows padded to the
+largest range). Gloo on CUDA tensors implements only ``broadcast`` and
+``all_reduce``, so there an all-gather is an all-reduce sum of a zero
+buffer in which each rank fills its own slot (exact: the other slots add
+zeros) and a reduce-scatter an all-reduce sum of which each rank keeps
+its rows. The token all-gather gathers each rank's rows padded to the
+largest range. Half-precision tensors travel as float32 through gloo.
+The route is chosen by the backend's name, never after a failure.
 
 The helpers ``data_*`` and :func:`global_draw` read the ambient mesh
 (:func:`.mesh.current`): the model's batch-wide reductions and per-image
@@ -37,7 +46,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Callable, Iterable, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -46,7 +55,8 @@ from . import mesh as mesh_lib
 
 __all__ = ["size", "rank", "all_reduce", "copy_to_model", "reduce_from_model",
            "all_gather", "mirror", "all_reduce_mean_", "data_coords",
-           "data_all_reduce", "global_draw", "STATS"]
+           "data_all_reduce", "global_draw", "TokenRange", "token_range_of",
+           "slice_tokens", "gather_tokens", "STATS"]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 _BUCKET_BYTES = 32 << 20
@@ -146,19 +156,24 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFromModel.apply(x.float(), group).to(x.dtype)
 
 
+def _wide(x: torch.Tensor, group) -> bool:
+    """Whether ``x`` must travel as float32 (gloo takes no half type)."""
+    return (x.dtype in (torch.float16, torch.bfloat16)
+            and dist.get_backend(group) == "gloo")
+
+
 def _gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """``(W,) + x.shape``: every rank's ``x`` in rank order."""
     w, r = size(group), rank(group)
+    src = x.float() if _wide(x, group) else x
     if _route(group, x) == "reduce":
-        wide = x.dtype in (torch.float16, torch.bfloat16)
-        src = x.float() if wide else x
         buf = src.new_zeros((w,) + tuple(x.shape))
         buf[r] = src
         return _reduce(buf, group).to(x.dtype)
-    out = x.new_empty((w,) + tuple(x.shape))
-    _collective(dist.all_gather, x, list(out.unbind(0)), x.contiguous(),
+    out = src.new_empty((w,) + tuple(x.shape))
+    _collective(dist.all_gather, x, list(out.unbind(0)), src.contiguous(),
                 group=group)
-    return out
+    return out.to(x.dtype)
 
 
 @torch.no_grad()
@@ -233,3 +248,100 @@ def global_draw(draw: Callable[[int], torch.Tensor], b: int) -> torch.Tensor:
         return draw(b)
     return draw(b * w)[r * b:(r + 1) * b]
 
+
+
+# --------------------------------------------------------- the seq axis ----
+
+class TokenRange(NamedTuple):
+    """This seq rank's tokens ``[lo, hi)`` of a stage of ``n``, and the seq
+    group (``parallel/mesh.py::token_range``)."""
+
+    lo: int
+    hi: int
+    n: int
+    group: object
+
+    @property
+    def size(self) -> int:
+        return self.hi - self.lo
+
+    def ranges(self) -> List[Tuple[int, int]]:
+        """Every seq rank's ``(lo, hi)``, in rank order."""
+        w = size(self.group)
+        return [mesh_lib.token_range(self.n, w, r) for r in range(w)]
+
+
+def token_range_of(n: int) -> Optional[TokenRange]:
+    """The :class:`TokenRange` of a stage of ``n`` tokens on the ambient
+    mesh, or None without a seq axis (then every rank holds every
+    token)."""
+    m = mesh_lib.current()
+    if m is None or m.seq == 1:
+        return None
+    lo, hi = mesh_lib.token_range(n, m.seq, m.seq_rank)
+    return TokenRange(lo, hi, n, m.seq_group)
+
+
+def slice_tokens(x: torch.Tensor, tokens: Optional[TokenRange],
+                 dim: int = 1) -> torch.Tensor:
+    """This rank's rows of ``x`` along its token ``dim`` (``x`` itself
+    without ``tokens``); its gradient is zero outside them."""
+    if tokens is None:
+        return x
+    return x.narrow(dim, tokens.lo, tokens.size)
+
+
+def _gather_ranges(x: torch.Tensor, tokens: TokenRange) -> torch.Tensor:
+    """``(n, ...)`` from every rank's ``(size, ...)`` rows (token dim
+    first): the rows padded to the widest range, gathered, and cut."""
+    ranges = tokens.ranges()
+    width = max(hi - lo for lo, hi in ranges)
+    pad = x.new_zeros((width,) + tuple(x.shape[1:]))
+    pad[:tokens.size] = x
+    rows = _gather_rows(pad, tokens.group)
+    return torch.cat([rows[r, :hi - lo] for r, (lo, hi) in enumerate(ranges)])
+
+
+def _scatter_ranges(g: torch.Tensor, tokens: TokenRange) -> torch.Tensor:
+    """This rank's ``(size, ...)`` rows of the sum over the ranks of the
+    ``(n, ...)`` ``g`` (token dim first)."""
+    group = tokens.group
+    src = g.float() if _wide(g, group) else g
+    if _route(group, g) == "reduce":
+        return _reduce(src.clone(), group)[tokens.lo:tokens.hi].to(g.dtype)
+    ranges = tokens.ranges()
+    width = max(hi - lo for lo, hi in ranges)
+    stacked = src.new_zeros((len(ranges) * width,) + tuple(g.shape[1:]))
+    for r, (lo, hi) in enumerate(ranges):
+        stacked[r * width:r * width + hi - lo] = src[lo:hi]
+    out = src.new_empty((width,) + tuple(g.shape[1:]))
+    _collective(dist.reduce_scatter_tensor, g, out, stacked,
+                op=dist.ReduceOp.SUM, group=group)
+    return out[:tokens.size].to(g.dtype)
+
+
+class _GatherTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tokens, dim):
+        ctx.tokens, ctx.dim = tokens, dim
+        full = _gather_ranges(x.detach().movedim(dim, 0).contiguous(), tokens)
+        return full.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.movedim(ctx.dim, 0).contiguous()
+        return (_scatter_ranges(g, ctx.tokens).movedim(0, ctx.dim)
+                .contiguous(), None, None)
+
+
+def gather_tokens(x: torch.Tensor, tokens: Optional[TokenRange],
+                  dim: int = 1) -> torch.Tensor:
+    """Every seq rank's rows of ``x`` (this rank's ``tokens``, along
+    ``dim``) put together into the stage's ``n`` (``x`` itself without
+    ``tokens``). The gradient is the sum over the seq ranks of the
+    gradient of the whole, on this rank's rows: each rank's whole-stage
+    consumers (the next stage, a k/v read by another rank's queries) add
+    their share."""
+    if tokens is None:
+        return x
+    return _GatherTokens.apply(x, tokens, dim)

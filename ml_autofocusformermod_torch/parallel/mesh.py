@@ -6,19 +6,25 @@ multi-host start).
 environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and, for
 ``env://``, ``MASTER_ADDR`` / ``MASTER_PORT``); without ``WORLD_SIZE`` the
 process stays alone and no collective ever runs. :func:`make_mesh` lays the
-ranks out as ``arange(world).reshape(data, model, seq)``, ``model``
+ranks out as ``arange(world).reshape(data, model, seq)``, ``seq``
 innermost, as the JAX mesh lays out its devices, and makes one process
-group per axis line. The mesh of the running program is ambient, as a JAX
-mesh in context is: ``parallel/zero.py::make_layout`` installs the mesh of
-the layout it makes (:func:`set_mesh`), :func:`current` reads it (None
-when there is none), and the model's batch-wide reductions and per-image
-draws consult it through :mod:`.comm`.
+group per axis line, and one per ``(data, seq)`` plane (the ranks that
+hold one model rank's parameters: the gradient's mean runs over it). The
+mesh of the running program is ambient, as a JAX mesh in context is:
+``parallel/zero.py::make_layout`` installs the mesh of the layout it makes
+(:func:`set_mesh`), :func:`current` reads it (None when there is none),
+and the model's batch-wide reductions and per-image draws consult it
+through :mod:`.comm`.
 
 ``shard_batch`` has no counterpart: each data rank loads its own shard of
 the batch (``build_loaders(config, host=data_rank, num_hosts=data)``), so
 the global batch is the concatenation of the data ranks' batches in rank
 order, as JAX's ``make_array_from_process_local_data`` assembles it.
-``shard_tokens`` (the ``seq`` axis) is not ported.
+``shard_tokens`` (the ``seq`` axis) is :func:`token_range`: a rank of
+seq rank ``s`` holds the tokens ``[n s / seq, n (s + 1) / seq)`` of every
+stage of ``n`` tokens (rounded down), the rows JAX's constraint puts on
+that device when ``seq`` divides ``n``; ``parallel/comm.py`` slices and
+gathers them.
 """
 
 from __future__ import annotations
@@ -32,14 +38,16 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "init_distributed", "make_mesh", "set_mesh", "current",
-           "destroy", "default_backend"]
+           "destroy", "default_backend", "token_range"]
 
 
 @dataclass(frozen=True)
 class Mesh:
     """One rank's view of the layout: the axis sizes, its coordinates and
     the process group of each axis line through it (None for an axis of
-    one rank, where nothing is communicated)."""
+    one rank, where nothing is communicated); ``replica_group`` holds the
+    ``data x seq`` ranks of its model rank (the data group when ``seq`` is
+    1)."""
 
     data: int
     model: int
@@ -49,6 +57,9 @@ class Mesh:
     model_rank: int
     data_group: Optional[object] = None
     model_group: Optional[object] = None
+    seq_rank: int = 0
+    seq_group: Optional[object] = None
+    replica_group: Optional[object] = None
 
     @property
     def world(self) -> int:
@@ -97,7 +108,7 @@ def make_mesh(data: int = -1, model: int = 1, seq: int = 1) -> Mesh:
         raise ValueError(f"mesh {data}x{model}x{seq} != {world} ranks")
     arr = np.arange(world).reshape(data, model, seq)
     d, m, s = (int(i[0]) for i in np.nonzero(arr == rank))
-    data_group = model_group = None
+    data_group = model_group = seq_group = replica_group = None
     # every rank creates every group, in one order (torch.distributed's rule)
     if data > 1:
         for mm in range(model):
@@ -111,7 +122,30 @@ def make_mesh(data: int = -1, model: int = 1, seq: int = 1) -> Mesh:
                 g = dist.new_group([int(r) for r in arr[dd, :, ss]])
                 if (dd, ss) == (d, s):
                     model_group = g
-    return Mesh(data, model, seq, rank, d, m, data_group, model_group)
+    if seq > 1:
+        for dd in range(data):
+            for mm in range(model):
+                g = dist.new_group([int(r) for r in arr[dd, mm, :]])
+                if (dd, mm) == (d, m):
+                    seq_group = g
+        if data > 1:
+            for mm in range(model):
+                g = dist.new_group([int(r) for r in arr[:, mm, :].ravel()])
+                if mm == m:
+                    replica_group = g
+        else:
+            replica_group = seq_group
+    else:
+        replica_group = data_group
+    return Mesh(data, model, seq, rank, d, m, data_group, model_group, s,
+                seq_group, replica_group)
+
+
+def token_range(n: int, seq: int, seq_rank: int) -> Tuple[int, int]:
+    """``(lo, hi)``: the tokens of ``n`` that seq rank ``seq_rank`` of
+    ``seq`` holds (the counterpart of JAX's ``shard_tokens``; contiguous,
+    in rank order, sizes differing by at most one)."""
+    return n * seq_rank // seq, n * (seq_rank + 1) // seq
 
 
 _CURRENT: Optional[Mesh] = None

@@ -12,6 +12,8 @@ parameters and gradients stay replicated over ``data``: each data rank
 updates its block of the moments and computes its block of the update,
 then the ranks all-gather the update (one flat collective per step), so
 every rank ends the step with the same parameters. ``TPU.ZERO1`` turns it on.
+The seq ranks of a data rank hold the same blocks: ZeRO-1 cuts over ``data``
+only.
 """
 
 from __future__ import annotations
@@ -46,6 +48,11 @@ class Layout:
     @property
     def model_group(self):
         return self.mesh.model_group
+
+    @property
+    def replica_group(self):
+        """The data x seq ranks that hold this rank's parameters."""
+        return self.mesh.replica_group
 
 
 def zero1_dim(key: str, shape, tp_spec: Optional[tp.Spec],

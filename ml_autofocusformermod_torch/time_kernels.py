@@ -120,11 +120,12 @@ def stage_geometry(gen, b, n, dev):
     return clustered_stage(gen, b, n, 56, dev)
 
 
-def attention_inputs(gen, b, n, h, c, dev, dtype):
-    """The attention kernels' inputs at one stage, by name."""
+def attention_inputs(gen, b, n, h, c, dev, dtype, geometry=None):
+    """The attention kernels' inputs at one stage, by name; ``geometry``:
+    its ``(pos, ncc)`` (default: an AFF-Mini stage's, ``stage_geometry``)."""
     import torch
 
-    pos, ncc = stage_geometry(gen, b, n, dev)
+    pos, ncc = geometry or stage_geometry(gen, b, n, dev)
     c_ = c // h
 
     def rnd(*shape, scale=1.0):

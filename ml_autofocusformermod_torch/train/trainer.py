@@ -18,12 +18,19 @@ partner in the global batch (on the mirror data rank), the gradients are
 averaged over the data ranks after the backward, the logged loss is the
 global mean, and the evaluation sums run over every data rank. Per-image
 draws (DropPath, MaskFiner's upsampling masks) are the global batch's,
-sliced to the rank's rows; element-wise Dropout then draws from its own
-stream per data rank (seeded by the seed and the data rank), not from the
-one-process stream. Under tensor parallelism alone the step draws what one
-process draws, Dropout too: a layer split over the model axis draws the
-mask of its whole activation and keeps its block, and the attention
-kernels' dropout seed is offset to the rank's first head.
+sliced to the rank's rows, and the attention kernels' dropout seed is
+offset to the rank's first image; element-wise Dropout then draws from its
+own stream per data rank, not from the one-process stream: a generator
+seeded anew at every step from the seed, the data rank and the step, as
+JAX folds the step into its key, so a resumed run draws what the
+uninterrupted run draws. Under tensor parallelism alone the step draws what
+one process draws, Dropout too: a layer split over the model axis draws
+the mask of its whole activation and keeps its block, and the attention
+kernels' dropout seed is offset to the rank's first head. Under sequence
+parallelism the seq ranks of a data rank draw the same numbers (a layer
+draws for all of the stage's tokens and keeps the rank's), and the
+gradients are averaged over the data and seq ranks together
+(``parallel/__init__.py`` gives the rule).
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ from .schedulers import build_scheduler
 
 __all__ = ["TrainState", "create_train_state", "apply_gradients",
            "model_loss", "check_mesh", "make_train_step", "make_eval_step",
-           "throughput", "ema_tensors"]
+           "throughput", "ema_tensors", "elem_step_seed"]
 
 
 def ema_tensors(model) -> Dict[str, torch.Tensor]:
@@ -65,7 +72,10 @@ class TrainState:
     upsampling masks in training; ``attn_drop_generator`` (CPU) draws the
     seeds of the attention kernels' dropout. ``layout`` is how this rank
     holds the state across processes (None: one process). Under ZeRO-1
-    ``ema`` holds this data rank's block of each cut parameter."""
+    ``ema`` holds this data rank's block of each cut parameter. With more
+    than one data rank, ``elem_generator`` (on the model's device) drives
+    Dropout, seeded at every step from ``elem_seed`` and ``step``
+    (:func:`elem_step_seed`)."""
 
     model: torch.nn.Module
     optimizer: Optimizer
@@ -76,6 +86,14 @@ class TrainState:
     step: int = 0
     ema: Optional[Dict[str, torch.Tensor]] = field(default=None)
     layout: Optional[zero_lib.Layout] = None
+    elem_generator: Optional[torch.Generator] = None
+    elem_seed: int = 0
+
+
+def elem_step_seed(elem_seed: int, step: int) -> int:
+    """The seed of a data rank's Dropout stream at ``step``: a function of
+    the rank's base seed and the step alone, so no state carries over."""
+    return (elem_seed * 1000033 + step) & (2**63 - 1)
 
 
 def create_train_state(config, model, n_steps_per_epoch: int = 1000,
@@ -89,17 +107,17 @@ def create_train_state(config, model, n_steps_per_epoch: int = 1000,
     every ClusterAttention's dropout seeds. ``layout``: this rank's share
     of a model sharded across processes (``parallel/zero.py::
     make_layout``); with more than one data rank Dropout draws from a
-    generator of its own, seeded by ``seed`` and the data rank (the model
-    ranks of a data rank share it)."""
+    generator of its own, seeded at each step from ``seed``, the data rank
+    and the step (the model and seq ranks of a data rank share it)."""
     seed = config.SEED if seed is None else seed
     schedule = build_scheduler(config, n_steps_per_epoch)
     optimizer = build_optimizer(config, schedule, model, layout)
     device = next(model.parameters()).device
     drop_gen = torch.Generator(device=device).manual_seed(seed)
-    elem_gen = drop_gen
+    elem_gen, elem_seed = drop_gen, 0
     if layout is not None and layout.mesh.data > 1:
-        elem_gen = torch.Generator(device=device).manual_seed(
-            seed * 1000003 + layout.mesh.data_rank + 1)
+        elem_seed = seed * 1000003 + layout.mesh.data_rank + 1
+        elem_gen = torch.Generator(device=device)
     for mod in model.modules():
         if isinstance(mod, DropPath):
             mod.generator = drop_gen
@@ -118,7 +136,9 @@ def create_train_state(config, model, n_steps_per_epoch: int = 1000,
                for k, t in ema_tensors(model).items()}
     state = TrainState(model, optimizer, drop_gen,
                        torch.Generator().manual_seed(seed), up_gen, attn_gen,
-                       ema=ema, layout=layout)
+                       ema=ema, layout=layout,
+                       elem_generator=None if elem_gen is drop_gen
+                       else elem_gen, elem_seed=elem_seed)
     return state, schedule
 
 
@@ -178,6 +198,7 @@ def make_train_step(config, state: TrainState, schedule: Callable) -> Callable:
     model = state.model
     params = dict(model.named_parameters())
     data_group = state.layout.data_group if state.layout else None
+    replica_group = state.layout.replica_group if state.layout else None
     data = comm.size(data_group)
 
     def partner(t: torch.Tensor) -> torch.Tensor:
@@ -187,6 +208,9 @@ def make_train_step(config, state: TrainState, schedule: Callable) -> Callable:
     def train_step(images: torch.Tensor, labels: torch.Tensor) -> dict:
         check_mesh(state.layout)
         model.train()
+        if state.elem_generator is not None:
+            state.elem_generator.manual_seed(
+                elem_step_seed(state.elem_seed, state.step))
         if mixup_on:
             images, target = mixup_cutmix(
                 state.mix_generator, images, labels, num_classes,
@@ -203,8 +227,9 @@ def make_train_step(config, state: TrainState, schedule: Callable) -> Callable:
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in params.items()}
         # the mean of the ranks' gradients of their batch means: the
-        # gradient of the global batch's mean
-        comm.all_reduce_mean_(grads.values(), data_group)
+        # gradient of the global batch's mean (over the seq ranks too:
+        # parallel/__init__.py)
+        comm.all_reduce_mean_(grads.values(), replica_group)
         lr = schedule(state.step // accum)
         grad_norm, finite = apply_gradients(state, grads, accum, ema_decay)
         loss = loss.detach()

@@ -141,12 +141,14 @@ def test_unknown_model_type_raises():
                                   ["TPU.ZERO1", "True", "TPU.MESH_DATA", "2"],
                                   ["TPU.MESH_DATA", "8"]])
 def test_switches_the_port_cannot_honour_raise(tmp_path, opts):
-    """Sequence parallelism (ROADMAP A11b), and a mesh whose sizes do not
-    multiply to the processes (one here), raise in ``build_model`` and in
-    ``main`` instead of being ignored. (Tensor parallelism, ZeRO-1 and data
-    parallelism on a matching world run since ROADMAP A11a:
+    """A mesh whose sizes do not multiply to the processes (one here)
+    raises in ``build_model`` and in ``main`` instead of being ignored; a
+    seq axis of 4 with the data size -1 does not divide one process.
+    (Tensor parallelism, ZeRO-1 and data parallelism on a matching world
+    run since ROADMAP A11a, sequence parallelism since A11b:
     ``test_torch_parallel*.py``.)"""
-    match = "ROADMAP A11b" if "TPU.MESH_SEQ" in opts else "!= 1 processes"
+    match = ("does not divide" if "TPU.MESH_SEQ" in opts
+             else "!= 1 processes")
     c = load_config(os.path.join(PORT_CFG, "aff_mini.yaml"),
                     opts=TINY_OPTS + opts)
     with pytest.raises(ValueError, match=match):

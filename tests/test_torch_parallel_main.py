@@ -11,7 +11,9 @@ timed:
   validation split) gives the one-process validation sums: the same count
   and top-1 / top-5 counts, the mean loss within 1e-5 relative;
 * tiny UD with tensor parallelism and tiny OT with ZeRO-1 train an epoch
-  and validate.
+  and validate;
+* tiny AFF trains at ``TPU.MESH_SEQ`` 2 (both ranks hold the same images,
+  each its half of every stage's tokens).
 """
 
 import json
@@ -68,6 +70,10 @@ def runs(tmp_path_factory):
             "--batch-size", "16", "--epochs", "1",
             "--output", os.path.join(tmp, "out")], TINY_OPTS),
         "eval": _argv(tmp, "eval", CFG, evals, TINY_OPTS),
+        "seq": _argv(tmp, "seq", CFG, [
+            "--batch-size", "16", "--epochs", "1",
+            "--output", os.path.join(tmp, "seq")],
+            TINY_OPTS + ["TPU.MESH_SEQ", "2"]),
         **{preset: _argv(tmp, preset, os.path.join(os.path.dirname(CFG),
                                                    preset),
                          ["--batch-size", "16", "--epochs", "1",
@@ -142,5 +148,22 @@ def test_main_trains_maskfiner_on_two_processes(runs, preset, mesh):
         assert train["skipped_steps"] == 0
         assert 1.0 < train["train_loss"] < 5.0
         assert train["val_count"] == 64
+    assert results[0]["train"]["train_loss"] == results[1]["train"][
+        "train_loss"]
+
+
+def test_main_trains_at_seq_2(runs):
+    """At ``TPU.MESH_SEQ`` 2 the two ranks are one data rank: each loads
+    all 64 images (4 steps of 16), the learning rate is scaled by 16, and
+    the two ranks log the same loss."""
+    results = [r["result"] for r in runs["seq"]]
+    assert "mesh: data 1 x model 1 x seq 2 over 2 processes" in \
+        runs["seq"][0]["log"]
+    for r in results:
+        assert (r["world"], r["data"], r["seq"]) == (2, 1, 2)
+        train = r["train"]
+        assert train["steps"] == 4 and train["skipped_steps"] == 0
+        assert train["val_count"] == 64
+        assert train["epochs"][0]["collective_calls"] > 0
     assert results[0]["train"]["train_loss"] == results[1]["train"][
         "train_loss"]

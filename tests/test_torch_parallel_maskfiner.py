@@ -12,6 +12,10 @@
   a layer split over the model axis drops its block of the one-process
   mask; the two ranks' Dropout masks differ and put together are the
   one-process mask;
+* the same at data 2 with the attention kernels' dropout on: each data
+  rank's kernels hash the global image index (its dropout seed offset to
+  its first image), so the ranks drop what one process drops (at data 2 x
+  model 2: ``test_torch_parallel_seq.py``);
 * the tensor-parallel plan of tiny UD and OT against JAX's per-leaf specs:
   the leaves that differ are exactly the named classes;
 * the sine position embedding of each rank's rows of the callers' grid
@@ -49,7 +53,7 @@ UD_CFG = os.path.join(CFG_DIR, "maskfiner_up_down_mini.yaml")
 GLOBAL_BATCH = 4
 # name: (data, model, zero1)
 LAYOUTS = {"dp": (2, 1, False), "zero": (2, 1, True), "tp": (1, 2, False),
-           "tp_drop": (1, 2, False)}
+           "tp_drop": (1, 2, False), "dp_attn_drop": (2, 1, False)}
 
 
 def _opts(preset, data=1, **extra):
@@ -73,13 +77,16 @@ MIX = {"TRAIN.USE_EMA": True, "AUG.MIXUP": 0.8, "AUG.CUTMIX": 1.0,
 DROP = {**MIX, "MODEL.MR.EMBED_DIM": [32, 24, 16, 16, 16, 24, 32],
         "MODEL.MR.DROP_RATE": [0.2] * 7,
         "MODEL.MR.ATTN_DROP_RATE": [0.0, 0.0, 0.2, 0.2, 0.2, 0.0, 0.0]}
+# the attention kernels' dropout alone: under data parallelism Dropout
+# draws from a stream per data rank, the kernels' hash from the global one
+ATTN_DROP = {k: v for k, v in DROP.items() if k != "MODEL.MR.DROP_RATE"}
 # the Dropout mask case: this rank's block (2, 3, 4) of a (2, 6, 4)
 # activation split along dim 1
 MASK = {"shape": [2, 3, 4], "dim": 1, "seed": 5}
 
 
 def _variant(name):
-    return DROP if name == "tp_drop" else MIX
+    return {"tp_drop": DROP, "dp_attn_drop": ATTN_DROP}.get(name, MIX)
 
 
 @pytest.fixture(scope="module")
@@ -92,7 +99,7 @@ def runs(tmp_path_factory):
     torch.save(batches, os.path.join(tmp, "batches.pt"))
 
     one = {}
-    for variant in (MIX, DROP):
+    for variant in (MIX, DROP, ATTN_DROP):
         cfg = load_config(UD_CFG, opts=_opts(UD_CFG, **variant))
         model = build_model(cfg, "cpu")
         state, schedule = trainer.create_train_state(cfg, model, 10)

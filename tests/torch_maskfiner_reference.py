@@ -10,7 +10,11 @@ training-mode loss and gradient of such a model (a name of ``TRAIN``:
 ``jax.value_and_grad`` with the "upsample" and "dropout" rng streams and
 mutable batch statistics, as the JAX ``train/trainer.py`` takes it; a
 name of ``TRAIN_DROP`` the same with attention dropout inside the fused
-kernels, of ``TRAIN_REMAT`` with ``TPU.REMAT``), and writes the weights, inputs, upsampling masks and outputs to
+kernels, of ``TRAIN_REMAT`` with ``TPU.REMAT``, of ``TRAIN_MESH`` on a
+``(data, model, seq)`` mesh of virtual CPU devices, the batch sharded over
+``data`` and the tokens over ``seq`` as ``tests/test_sp.py`` runs it; its
+process needs ``--xla_force_host_platform_device_count``), and writes the
+weights, inputs, upsampling masks and outputs to
 one ``.npz`` (keys ``case/params/...``, ``case/batch_stats/...``,
 ``case/in/...``, ``case/mask/j``, ``case/out/...``, ``case/grad/...``,
 ``case/new_stats/...``, and for ``TRAIN_DROP`` ``case/seeds``).
@@ -28,6 +32,7 @@ script records each mask as the jitted forward made it, so the tests can
 replay it into the port.
 """
 
+import contextlib
 import os
 import sys
 
@@ -91,6 +96,9 @@ TRAIN_REMAT = {
                                [0.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0])
     for mode in ("blocks", "dots")
 }
+# training cases on a mesh: name -> (data, model, seq) of tiny Up-Down
+TRAIN_MESH = {"ud_train_s2": (1, 1, 2), "ud_train_d2s2": (2, 1, 2),
+              "ud_train_m2s2": (1, 2, 2)}
 LABELS = np.array([3, 7])
 # a first-layer level in training mode: its patch embedding's BatchNorm
 # normalises with the batch statistics and updates its running ones; the
@@ -252,7 +260,10 @@ def run_train(out, name):
     )
 
     drop = name in TRAIN_DROP
-    preset, opts, ratios = {**TRAIN, **TRAIN_REMAT, **TRAIN_DROP}[name]
+    layout = TRAIN_MESH.get(name)
+    preset, opts, ratios = ({**TRAIN, **TRAIN_REMAT, **TRAIN_DROP}[name]
+                            if layout is None
+                            else ("maskfiner_up_down_mini.yaml", {}, None))
     rng = np.random.default_rng(6)
     if drop:
         model = _build_pallas_route(tiny_mr(preset, **opts), ratios)
@@ -283,9 +294,19 @@ def run_train(out, name):
         return loss, (upd.get("batch_stats", {}), masks, seeds)
 
     step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-    with jax.default_matmul_precision("highest"):
-        (loss, (stats, masks, seeds)), grads = step(variables["params"],
-                                                    jnp.asarray(x))
+    params, xin = variables["params"], jnp.asarray(x)
+    mesh = contextlib.nullcontext()
+    if layout is not None:
+        from ml_autofocusformermod_tpu.parallel import mesh as pmesh
+        from ml_autofocusformermod_tpu.parallel import tp
+
+        data, model_size, seq = layout
+        mesh = pmesh.make_mesh(data, model_size, seq,
+                               devices=jax.devices()[:data * model_size * seq])
+        params = tp.shard_tree(mesh, {"params": params})["params"]
+        xin = pmesh.shard_batch(mesh, {"x": x})["x"]
+    with mesh, jax.default_matmul_precision("highest"):
+        (loss, (stats, masks, seeds)), grads = step(params, xin)
     flat(f"{name}/params", variables["params"], out)
     flat(f"{name}/batch_stats", stats0, out)
     flat(f"{name}/grad", grads, out)
@@ -340,7 +361,8 @@ def main():
     out = {}
     for case in cases:
         run = (run_model if case in MODELS else
-               run_train if case in {**TRAIN, **TRAIN_REMAT, **TRAIN_DROP}
+               run_train if case in {**TRAIN, **TRAIN_REMAT, **TRAIN_DROP,
+                                     **TRAIN_MESH}
                else
                run_first_level_train if case == FIRST_TRAIN else run_level)
         run(out, case)
@@ -353,15 +375,17 @@ if __name__ == "__main__":
 
 # ---- helpers for the tests (run in the test process) ----
 
-def run_reference(tmp_dir, *groups):
+def run_reference(tmp_dir, *groups, devices: int = 1):
     """Run this script on each group of cases, all groups at once, each in
-    a process of its own with XLA at optimisation level 0; returns the
-    merged arrays."""
+    a process of its own with XLA at optimisation level 0 (and ``devices``
+    virtual CPU devices); returns the merged arrays."""
     import subprocess
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_backend_optimization_level=0",
+    flags = "--xla_backend_optimization_level=0"
+    if devices > 1:
+        flags += f" --xla_force_host_platform_device_count={devices}"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=flags,
                PYTHONPATH=os.pathsep.join(
                    [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     procs = []

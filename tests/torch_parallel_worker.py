@@ -13,17 +13,27 @@ train state (gathered as a checkpoint gathers it) and this rank's own
 blocks. ``rank<r>.pt`` in the output directory holds the results by case.
 
 A case (dict): ``name``; ``cfg`` and ``opts`` (the port config);
-``data``, ``model``, ``zero1``; ``batches`` (a ``torch.save`` of a list of
-``(images NCHW, labels)`` global batches, one per step); optionally
-``variables`` (a ``torch.save`` of flax variables with numpy leaves,
-loaded through ``ckpt/from_jax.py::rank_state_dict_from_flax``),
-``resume`` (a one-process checkpoint to load before the steps), ``save``
-(a directory to checkpoint into after the steps), ``eval`` (also run the
-eval step on this rank's rows of the first batch). A case of ``kind``
-``dropout`` instead returns the mask that a ``Dropout`` inside a layer
-split over a model-only mesh of the world draws for this rank's block of
-an activation (``shape`` the block's, split along ``dim``), from a
-generator seeded with ``seed``.
+``data``, ``model``, ``zero1`` and optionally ``seq`` (default 1);
+``batches`` (a ``torch.save`` of a list of ``(images NCHW, labels)``
+global batches, one per step); optionally ``variables`` (a ``torch.save``
+of flax variables with numpy leaves, loaded through
+``ckpt/from_jax.py::rank_state_dict_from_flax``), ``masks`` (a
+``torch.save`` of ``{j: (global batch, n)}`` upsampling scores that a
+MaskFiner model takes in place of its own draws, this data rank's rows),
+``route`` (``reduce``: the collectives take the all-reduce route that
+gloo on CUDA tensors takes), ``after`` (a file whose appearance says
+that the case's inputs are written: the rank waits for it, so that a
+launch can start before its last cases' inputs exist), ``resume`` (a
+checkpoint to load before the steps), ``save`` (a directory to
+checkpoint into after the steps; every rank waits for the write),
+``eval`` (also run the eval step on this rank's rows of the first
+batch). A case of ``kind`` ``dropout`` instead returns
+the mask that a ``Dropout`` inside a layer split over a model-only mesh of
+the world draws for this rank's block of an activation (``shape`` the
+block's, split along ``dim``), from a generator seeded with ``seed``; of
+``kind`` ``halo``, a MixResViT ``FeedForward`` (depthwise conv) on a
+``(h, w)`` token grid at ``seq`` = the world, its output rows and the
+gradients of a loss of the gathered output (:func:`run_halo`).
 
 A spec with ``main`` in place of ``cases`` runs the port's ``main`` once per
 entry (``argv``), one run after another in the same processes, each with
@@ -44,6 +54,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -56,7 +67,14 @@ from ml_autofocusformermod_torch.ckpt.from_jax import (  # noqa: E402
 )
 from ml_autofocusformermod_torch.config import load_config  # noqa: E402
 from ml_autofocusformermod_torch.models.build import build_model  # noqa: E402
+from ml_autofocusformermod_torch.models import (  # noqa: E402
+    maskfiner_ot, maskfiner_ud,
+)
 from ml_autofocusformermod_torch.models.layers import Dropout  # noqa: E402
+from ml_autofocusformermod_torch.models.mixres_vit import (  # noqa: E402
+    FeedForward,
+)
+from ml_autofocusformermod_torch.parallel import comm  # noqa: E402
 from ml_autofocusformermod_torch.parallel import mesh as mesh_lib  # noqa: E402
 from ml_autofocusformermod_torch.parallel.zero import make_layout  # noqa: E402
 from ml_autofocusformermod_torch.train.trainer import (  # noqa: E402
@@ -72,17 +90,85 @@ def run_dropout(case: dict) -> dict:
     return {"keep": drop(x, mesh.model_group, dim=case["dim"]) != 0}
 
 
+def run_halo(case: dict) -> dict:
+    """This seq rank's rows of a depthwise-conv FeedForward's output on a
+    ``(h, w)`` grid whose token range boundary cuts a grid row, and the
+    gradients of ``sum(gathered output * weights)`` with respect to the
+    whole input and the parameters."""
+    mesh = mesh_lib.make_mesh(1, 1, torch.distributed.get_world_size())
+    mesh_lib.set_mesh(mesh)
+    torch.manual_seed(case["seed"])
+    h, w = case["grid"]
+    ffn = FeedForward(4, 6, dropout=0.0)
+    x = torch.randn(2, h * w, 4, requires_grad=True)
+    weights = torch.randn(2, h * w, 4)
+    tokens = comm.token_range_of(h * w)
+    y = ffn(comm.slice_tokens(x, tokens), h, w, tokens)
+    (comm.gather_tokens(y, tokens) * weights).sum().backward()
+    mesh_lib.set_mesh(None)
+    return {"range": (tokens.lo, tokens.hi), "y": y.detach(),
+            "x_grad": x.grad,
+            "grads": {k: p.grad for k, p in ffn.named_parameters()}}
+
+
+def _replay_masks(path, data_rank):
+    """A ``random_upsampling_mask`` that returns this data rank's rows of
+    the recorded scores."""
+    masks = torch.load(path, weights_only=False)
+
+    def replay(model, j, b, n, device):
+        return masks[j][data_rank * b:(data_rank + 1) * b].to(device)
+
+    return replay
+
+
+def _wait_for(path: str, timeout: float = 300.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {path} after {timeout} s")
+        time.sleep(0.1)
+
+
 def run_case(case: dict) -> dict:
+    if case.get("after"):
+        _wait_for(case["after"])
     if case.get("kind") == "dropout":
         return run_dropout(case)
+    if case.get("kind") == "halo":
+        return run_halo(case)
+    with contextlib.ExitStack() as stack:
+        if case.get("route"):
+            stack.enter_context(_patched(comm, "_route",
+                                         lambda group, t: case["route"]))
+        return _run_steps(case, stack)
+
+
+@contextlib.contextmanager
+def _patched(module, name, value):
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def _run_steps(case: dict, stack: contextlib.ExitStack) -> dict:
     config = load_config(case["cfg"], opts=case["opts"])
-    mesh = mesh_lib.make_mesh(case["data"], case["model"])
+    mesh = mesh_lib.make_mesh(case["data"], case["model"],
+                              case.get("seq", 1))
     model = build_model(config, "cpu")
     layout = make_layout(model, mesh, case.get("zero1", False))
     if case.get("variables"):
         variables = torch.load(case["variables"], weights_only=False)
         model.load_state_dict(rank_state_dict_from_flax(
             variables, layout.tp, mesh.model_rank, mesh.model))
+    if case.get("masks"):
+        replay = _replay_masks(case["masks"], mesh.data_rank)
+        for module in (maskfiner_ot, maskfiner_ud):
+            stack.enter_context(_patched(module, "random_upsampling_mask",
+                                         replay))
     state, schedule = create_train_state(config, model, 10, layout=layout)
     if case.get("resume"):
         ckpt_io.load_checkpoint(case["resume"], state)
@@ -109,11 +195,14 @@ def run_case(case: dict) -> dict:
                                for k, t in model.state_dict().items()},
                      "optimizer": state.optimizer.state_dict(),
                      "ema": state.ema}
+    out["comm_calls"] = comm.STATS["calls"]
     out["coords"] = {"data_rank": mesh.data_rank,
                      "model_rank": mesh.model_rank}
+    out["seq_rank"] = mesh.seq_rank
     out["layout"] = {"tp": dict(layout.tp), "zero": dict(layout.zero)}
     if case.get("save"):
         ckpt_io.save_checkpoint(case["save"], 0, state, 0.0)
+        torch.distributed.barrier()
     mesh_lib.set_mesh(None)
     return out
 
