@@ -215,7 +215,24 @@ Phases, one JSON line each:
    of four steps (its throughput protocol cut to 1 + 1 forwards): img/s
    after the first step and peak memory per rank, ms per step in
    collectives, launches;
-15. stop_processes, also when a phase fails: the loaders' worker server
+15. pipeline parallelism (``parallel/pp.py``, GPipe) over AFF-Mini's
+   stage 3 (six blocks, dim 256, 8 heads, n = 196), its input, positions,
+   nearest clusters and tile metadata captured before the stage's first
+   block in a real forward, ranks on the one card through gloo:
+   parallel_pipe_check (fp32, b = 8, the same blocks on every rank) runs
+   pipe 2 at M = 2, 4 and 8 microbatches and data 2 x pipe 2 at M = 2
+   against one process's ``sequential_blocks`` on the card: the output
+   within 1e-5 of max|ref|, ``x``'s gradient and every block's gradient
+   within 1e-4, whether each is bit-equal, every pipe rank the same
+   output; parallel_pipe_train (b = 128 bf16, pipe 2 at M = 4 and 8, the
+   collectives timed) holds the same at 2e-2 and gives ms per pipelined
+   forward and backward per rank beside one process's sequential ms, the
+   bubble (P-1)/(M+P-1), ms and count of collectives per step, peak
+   memory per rank above what the process held before; every rank
+   launches the attention forward with statistics and the saved backward
+   3 M times per pass (3 blocks per stage on M microbatches; the
+   bubble's compute is skipped);
+16. stop_processes, also when a phase fails: the loaders' worker server
    and its resource tracker are stopped and waited for, and the script
    fails if a child process of its own is still running.
 
@@ -233,7 +250,8 @@ profiled run (``aff_mini_profile``), each rank of the parallel runs
 (``<model>[_attn_drop]_<layout>_rank<r>``,
 ``<model>_parallel_train[_zero1]_rank<r>``,
 ``<model>[_attn_drop]_seq2_rank<r>``, ``<model>_seq2_train_rank<r>``,
-counted inside each rank's process) and the NCCL run
+``aff_mini_s3_pipe2_m<M>_rank<r>``: one pipelined pass of the stage-3
+chain, counted inside each rank's process) and the NCCL run
 (``aff_mini_nccl_world1``), and for the attention kernels their
 times at the UD-Mini shapes (``maskfiner_ud_mini``: the forward at eval;
 ``maskfiner_ud_mini_train_r1`` / ``_final``: forward and backward per
@@ -3491,6 +3509,378 @@ def phase_parallel_ckpt(torch, smi, kept):
                              f"{val_loss}")
 
 
+# ----------------------------------- pipeline parallelism (parallel/pp.py) --
+
+PIPE_STAGE = 2  # AFF-Mini's stage 3: six blocks of one shape
+PIPE_CHECK = (("p2m2", 1, 2, 2), ("p2m4", 1, 2, 4), ("p2m8", 1, 2, 8),
+              ("d2p2m2", 2, 2, 2))  # (name, data, pipe, microbatches)
+PIPE_TRAIN = (("p2m4", 1, 2, 4), ("p2m8", 1, 2, 8))
+PIPE_ITERS = 5  # timed forward + backward passes per layout
+
+PIPE_RANK = r"""
+import json, sys
+import torch
+import chip_smoke as cs
+from ml_autofocusformermod_torch.parallel import mesh as mesh_lib
+spec = json.loads(sys.argv[1])
+dev = torch.device(spec["device"])
+if dev.type == "cuda":
+    torch.cuda.set_device(0)
+mesh_lib.init_distributed(dev, "gloo", spec["init"])
+try:
+    for case in spec["cases"]:
+        print(json.dumps(cs.pipe_rank_case(torch, spec, case, dev)),
+              flush=True)
+finally:
+    mesh_lib.destroy()
+"""
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def capture_stage3(torch, b, dtype_name, dev, path):
+    """AFF-Mini 224 built from seed 0 in ``dtype_name`` on ``dev``, one
+    eval forward of ``b`` synthetic images (``captured_attention``'s): the
+    stage-3 blocks' input ``feat`` and the ``ncc``, ``pos`` and tile
+    metadata that ``BasicLayer.forward`` gives them, captured before the
+    first block, with the stage's six blocks, saved to ``path``; also
+    ``g``, an output gradient drawn from seed 7."""
+    import numpy as np
+
+    from ml_autofocusformermod_torch.models.build import build_model
+
+    cfg = port_config("aff_mini.yaml", ["TPU.COMPUTE_DTYPE", dtype_name])
+    model = build_model(cfg, dev, seed=0).eval()
+    images = torch.from_numpy(np.stack([
+        np.random.default_rng(i).standard_normal((224, 224, 3)).astype(
+            np.float32) for i in range(b)]).transpose(0, 3, 1, 2).copy())
+    blocks = model.layers[PIPE_STAGE].blocks
+    seen = {}
+
+    def hook(module, args):
+        x, _, _, ncc, cs, pos, meta = args[:7]
+        seen.update(x=x.detach().clone(), ncc=ncc.clone(), pos=pos.clone(),
+                    meta=tuple(t.clone() for t in meta), cs=cs)
+
+    handle = blocks[0].register_forward_pre_hook(hook)
+    try:
+        with torch.no_grad():
+            model(images.to(dev))
+    finally:
+        handle.remove()
+    gen = torch.Generator().manual_seed(7)
+    seen["g"] = torch.randn(seen["x"].shape, generator=gen).to(
+        dev, seen["x"].dtype)
+    seen["blocks"] = blocks
+    torch.save(seen, path)
+
+
+def pipe_chain(torch, spec, dev):
+    """The captured chain of ``spec`` on ``dev`` (its blocks in training
+    mode) and the block function."""
+    from ml_autofocusformermod_torch.ops.cluster_attention import TileMeta
+
+    saved = torch.load(spec["captured"], weights_only=False,
+                       map_location=dev)
+    cs = saved["cs"]
+
+    def block_fn(blk, x, ncc, pos, meta):
+        return blk(x, False, None, ncc, cs, pos, meta)
+
+    saved["meta"] = TileMeta(*saved["meta"])
+    saved["blocks"].train()
+    return saved, block_fn
+
+
+def pipe_step(torch, block_fn, blocks, x, consts, g, run):
+    """One forward (``run(block_fn, blocks, x, consts)``) and the backward
+    of ``sum(out * g)``, the blocks' gradients reset first and left on
+    them: the output, ``x``'s gradient and the two phases' host ms
+    (synchronised)."""
+    for t in blocks.parameters():
+        t.grad = None
+    x = x.detach().requires_grad_()
+    sync(torch, x.device)
+    t0 = time.perf_counter()
+    out = run(block_fn, blocks, x, consts)
+    sync(torch, x.device)
+    t1 = time.perf_counter()
+    (out.float() * g.float()).sum().backward()
+    sync(torch, x.device)
+    t2 = time.perf_counter()
+    return out.detach(), x.grad, 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+
+
+def pipe_passes(torch, run, block_fn, blocks, x, consts, g, dev, timed,
+                first=0):
+    """Passes of ``run`` (the pipelined or the sequential chain) over
+    ``blocks``: with ``timed`` one first (the path's first launches); then
+    the pass whose launches are counted (counters zeroed just before, read
+    just after), which gives the output, ``x``'s gradient and the blocks'
+    gradients (keys ``<first + j>.<parameter>``); with ``timed`` then
+    ``PIPE_ITERS`` passes: the median forward, backward and step ms, the
+    collectives per step and the passes' peak memory above what the
+    process held before them (the caller's earlier phases hold some)."""
+    from ml_autofocusformermod_torch.parallel import comm
+
+    args = (torch, block_fn, blocks, x, consts, g, run)
+    if timed:
+        pipe_step(*args)
+    zero_counters()
+    out, x_grad, _, _ = pipe_step(*args)
+    res = {"launches": read_counters(), "out": out, "x_grad": x_grad,
+           "grads": {f"{first + j}.{k}": t.grad.clone()
+                     for j, blk in enumerate(blocks)
+                     for k, t in blk.named_parameters()}}
+    if timed:
+        held = 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+        calls, secs = comm.STATS["calls"], comm.STATS["seconds"]
+        times = [pipe_step(*args)[2:] for _ in range(PIPE_ITERS)]
+        mid = PIPE_ITERS // 2
+        res.update(
+            fwd_ms=sorted(t[0] for t in times)[mid],
+            bwd_ms=sorted(t[1] for t in times)[mid],
+            step_ms=sorted(sum(t) for t in times)[mid],
+            collective_calls_per_step=(comm.STATS["calls"] - calls)
+            / PIPE_ITERS,
+            collective_ms_per_step=1e3 * (comm.STATS["seconds"] - secs)
+            / PIPE_ITERS,
+            peak_memory_bytes=(torch.cuda.max_memory_allocated(dev) - held
+                               if dev.type == "cuda" else None))
+    return res
+
+
+def pipe_rank_case(torch, spec, case, dev):
+    """One rank's run of a pipe layout (``PIPE_RANK``): this rank's stage
+    of the captured chain on its data rank's rows in ``M`` microbatches,
+    through :func:`pipe_passes` (``timed`` from ``spec``). Saves this
+    rank's output, ``x`` gradient and stage gradients (the data line's
+    mean) for the caller; returns the JSON line."""
+    import os
+
+    from ml_autofocusformermod_torch.parallel import comm, pp
+
+    name, data, pipe, M = case
+    saved, block_fn = pipe_chain(torch, spec, dev)
+    mesh = pp.make_pipe_mesh(pipe, data)
+    stage = pp.stage_blocks(saved["blocks"], mesh)
+    b = saved["x"].shape[0] // data
+    rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+    consts = tuple(c[rows].contiguous() if isinstance(c, torch.Tensor) else
+                   type(c)(*(t[rows].contiguous() for t in c))
+                   for c in (saved["ncc"], saved["pos"], saved["meta"]))
+
+    def run(fn, blks, y, cs_):
+        return pp.pipeline_blocks(fn, blks, y, cs_, mesh=mesh,
+                                  num_microbatches=M)
+
+    res = pipe_passes(torch, run, block_fn, stage,
+                      saved["x"][rows].contiguous(), consts,
+                      saved["g"][rows].contiguous(), dev, spec["timed"],
+                      mesh.pipe_rank * len(stage))
+    comm.all_reduce_mean_(list(res["grads"].values()), mesh.data_group)
+    torch.save({k: res.pop(k) for k in ("out", "x_grad", "grads")},
+               os.path.join(spec["out"], f"{name}_rank{mesh.rank}.pt"))
+    return {"rank": mesh.rank, "case": name, "pipe_rank": mesh.pipe_rank,
+            "data_rank": mesh.data_rank, **res}
+
+
+def run_pipe_layouts(torch, spec, layouts, timeout=300, env_extra=None):
+    """Every layout of ``layouts`` on its ranks (``PIPE_RANK``; one launch
+    per world size, in order): the JSON lines by ``(case, rank)``."""
+    lines = {}
+    for world in sorted({d * p for _, d, p, _ in layouts}):
+        cases = [c for c in layouts if c[1] * c[2] == world]
+        outs = run_ranks((PIPE_RANK, json.dumps({
+            **spec, "cases": cases,
+            "init": f"tcp://localhost:{free_ports(1)[0]}"})), world,
+            env_extra, timeout=timeout)
+        for out in outs:
+            for ln in json_lines(out):
+                lines[(ln["case"], ln["rank"])] = ln
+    return lines
+
+
+def pipe_compare(torch, tmp, name, world, data, ref):
+    """The worst error of layout ``name``'s ranks against the sequential
+    ``ref`` (``out``, ``x_grad``, ``grads``), each relative to its
+    tensor's max|ref|: the output and ``x``'s gradient as every pipe rank
+    holds them (the data ranks' rows in order), every block's gradient
+    from its own pipe rank (times ``data``: each data rank's loss is its
+    rows' sum); and whether each is bit-equal to the reference."""
+    import os
+
+    ranks = [torch.load(os.path.join(tmp, f"{name}_rank{r}.pt"))
+             for r in range(world)]
+    pipe = world // data
+
+    def rows(key, p):
+        return torch.cat([ranks[d * pipe + p][key] for d in range(data)])
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max().item()
+                / max(b.float().abs().max().item(), 1e-30))
+
+    outs = [rows("out", p) for p in range(pipe)]
+    x_grads = [rows("x_grad", p) for p in range(pipe)]
+    grads = {k: t * data for r in ranks[:pipe] for k, t in r["grads"].items()}
+    worst = max((rel(grads[k], t), k) for k, t in ref["grads"].items())
+    return {
+        "out_rel_err": max(rel(o, ref["out"]) for o in outs),
+        "x_grad_rel_err": max(rel(xg, ref["x_grad"]) for xg in x_grads),
+        "worst_grad_rel_err": worst,
+        "bit_equal": {
+            "out": all(torch.equal(o, ref["out"]) for o in outs),
+            "x_grad": all(torch.equal(xg, ref["x_grad"]) for xg in x_grads),
+            "grads": all(torch.equal(grads[k], t)
+                         for k, t in ref["grads"].items())},
+        "same_on_pipe_ranks": all(torch.equal(o, outs[0]) for o in outs),
+        "grad_keys_match": sorted(grads) == sorted(ref["grads"])}
+
+
+def pipe_sequential(torch, saved, block_fn, timed, dev):
+    """The sequential chain in this process on the captured inputs
+    (:func:`pipe_passes`)."""
+    from ml_autofocusformermod_torch.parallel import pp
+
+    return pipe_passes(torch, lambda fn, blks, y, cs_: pp.sequential_blocks(
+        fn, blks, y, cs_), block_fn, saved["blocks"], saved["x"],
+        (saved["ncc"], saved["pos"], saved["meta"]), saved["g"], dev, timed)
+
+
+def phase_parallel_pipe_check(torch, smi, dev="cuda", b=8):
+    """GPipe (``parallel/pp.py``) over AFF-Mini's stage 3 (six blocks,
+    dim 256, 8 heads, n = 196, clusters of 8, nnc 6), fp32, ``b`` = 8, on
+    inputs captured from a real forward, the same blocks on every rank:
+    pipe 2 at M = 2, 4 and 8 (two ranks) and data 2 x pipe 2 at M = 2
+    (four ranks), all on the one card through gloo, against one process's
+    ``sequential_blocks`` on the card: the output within 1e-5 of max|ref|,
+    ``x``'s gradient and every block's parameter gradient within 1e-4;
+    whether each is bit-equal; every pipe rank the same output; each
+    rank's attention launches (3 M forwards with statistics and 3 M saved
+    backwards)."""
+    import shutil
+    import tempfile
+
+    dev = torch.device(dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
+    try:
+        path = f"{tmp}/captured.pt"
+        capture_stage3(torch, b, "float32", dev, path)
+        saved, block_fn = pipe_chain(torch, {"captured": path}, dev)
+        ref = pipe_sequential(torch, saved, block_fn, False, dev)
+        t0 = time.perf_counter()
+        lines = run_pipe_layouts(torch, {"captured": path, "out": tmp,
+                                         "device": str(dev),
+                                         "timed": False}, PIPE_CHECK)
+        secs = time.perf_counter() - t0
+        for name, data, pipe, M in PIPE_CHECK:
+            world = data * pipe
+            cmp = pipe_compare(torch, tmp, name, world, data, ref)
+            per_rank = [lines[(name, r)]["launches"] for r in range(world)]
+            want = attention_launches(0, 3 * M)
+            launched = all(ln[k] == v for ln in per_rank
+                           for k, v in want.items())
+            ok = (cmp["out_rel_err"] <= 1e-5 and cmp["x_grad_rel_err"] <= 1e-4
+                  and cmp["worst_grad_rel_err"][0] <= 1e-4
+                  and cmp["same_on_pipe_ranks"] and cmp["grad_keys_match"]
+                  and launched)
+            emit({"phase": "parallel_pipe_check", "model": "aff_mini",
+                  "chain": "stage 3, 6 blocks", "layout": name,
+                  "data": data, "pipe": pipe, "microbatches": M,
+                  "dtype": "float32", "b": b, "backend": "gloo",
+                  **cmp, "limits": {"out": 1e-5, "grads": 1e-4},
+                  "launches_per_rank": per_rank, "card": smi, "ok": ok})
+            if not ok:
+                raise AssertionError(f"parallel_pipe_check {name}")
+        emit({"phase": "parallel_pipe_check_ranks", "seconds": secs})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_parallel_pipe_train(torch, smi, dev="cuda", b=128):
+    """The same chain at ``b`` = 128 bf16 (inputs captured from a bf16
+    forward), pipe 2 at M = 4 and 8, the collectives timed
+    (``MLAFF_COMM_TIMING=1``): forward, then the backward of ``sum(out *
+    g)``, against the sequential chain in one process on the card (2e-2
+    of max|ref|). Per layout: ms per pipelined forward and backward per
+    rank (medians of ``PIPE_ITERS``) beside one process's sequential ms,
+    the bubble (P-1)/(M+P-1), ms and count of collectives per step, peak
+    memory per rank (above what the process held before: the caller
+    holds earlier phases' tensors), and the attention launches of one pass per rank: 3 M
+    forwards with statistics and 3 M saved backwards (the bubble's
+    compute is skipped). Two ranks time-share one card and gloo carries
+    the hand-offs through the host: not a scaling number. Returns the
+    launches by run (``aff_mini_s3_pipe2_m<M>_rank<r>``)."""
+    import shutil
+    import tempfile
+
+    dev = torch.device(dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipe_train_")
+    by_run = {}
+    try:
+        path = f"{tmp}/captured.pt"
+        capture_stage3(torch, b, "bfloat16", dev, path)
+        saved, block_fn = pipe_chain(torch, {"captured": path}, dev)
+        ref = pipe_sequential(torch, saved, block_fn, True, dev)
+        seq_launches = ref["launches"]
+        t0 = time.perf_counter()
+        lines = run_pipe_layouts(torch, {"captured": path, "out": tmp,
+                                         "device": str(dev), "timed": True},
+                                 PIPE_TRAIN,
+                                 env_extra={"MLAFF_COMM_TIMING": "1"})
+        secs = time.perf_counter() - t0
+        for name, data, pipe, M in PIPE_TRAIN:
+            world = data * pipe
+            cmp = pipe_compare(torch, tmp, name, world, data, ref)
+            per_rank = [lines[(name, r)] for r in range(world)]
+            want = attention_launches(0, 3 * M)
+            launched = all(ln["launches"][k] == v for ln in per_rank
+                           for k, v in want.items())
+            ok = (cmp["out_rel_err"] <= 2e-2 and cmp["x_grad_rel_err"] <= 2e-2
+                  and cmp["worst_grad_rel_err"][0] <= 2e-2
+                  and cmp["same_on_pipe_ranks"] and cmp["grad_keys_match"]
+                  and launched)
+            emit({"phase": "parallel_pipe_train", "model": "aff_mini",
+                  "chain": "stage 3, 6 blocks", "layout": name,
+                  "data": data, "pipe": pipe, "microbatches": M,
+                  "dtype": "bfloat16", "b": b, "backend": "gloo",
+                  "device": "one card, two processes",
+                  "bubble_predicted": (pipe - 1) / (M + pipe - 1),
+                  "fwd_ms_per_rank": [ln["fwd_ms"] for ln in per_rank],
+                  "bwd_ms_per_rank": [ln["bwd_ms"] for ln in per_rank],
+                  "step_ms_per_rank": [ln["step_ms"] for ln in per_rank],
+                  "sequential_fwd_ms": ref["fwd_ms"],
+                  "sequential_bwd_ms": ref["bwd_ms"],
+                  "sequential_step_ms": ref["step_ms"],
+                  "collective_ms_per_step_per_rank": [
+                      ln["collective_ms_per_step"] for ln in per_rank],
+                  "collective_calls_per_step_per_rank": [
+                      ln["collective_calls_per_step"] for ln in per_rank],
+                  "peak_memory_bytes_per_rank": [
+                      ln["peak_memory_bytes"] for ln in per_rank],
+                  "sequential_peak_memory_bytes": ref["peak_memory_bytes"],
+                  **cmp, "rel_limit": 2e-2,
+                  "launches_per_rank": [ln["launches"] for ln in per_rank],
+                  "sequential_launches": seq_launches,
+                  "card": smi, "ok": ok})
+            if not ok:
+                raise AssertionError(f"parallel_pipe_train {name}")
+            for r in range(world):
+                by_run[f"aff_mini_s3_pipe2_m{M}_rank{r}"] = (
+                    per_rank[r]["launches"])
+        emit({"phase": "parallel_pipe_train_ranks", "seconds": secs})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return by_run
+
+
 def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
                  mft_launches, tp_rows, seq_rows):
     """One entry per CUDA kernel: launches in the training run of the entry
@@ -3629,6 +4019,8 @@ def main() -> int:
         mft_launches.update(by_run)
         phase_parallel_ckpt(torch, smi, kept)
         mft_launches.update(phase_parallel_seq_train(torch, smi))
+        phase_parallel_pipe_check(torch, smi)
+        mft_launches.update(phase_parallel_pipe_train(torch, smi))
         line = kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
                             mft_launches, tp_rows, seq_rows)
     finally:

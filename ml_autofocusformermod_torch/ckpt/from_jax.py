@@ -11,14 +11,15 @@ module needs neither JAX nor flax.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, List, Mapping, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..parallel.tp import shard_tensor
 
-__all__ = ["state_dict_from_flax", "rank_state_dict_from_flax", "torch_key"]
+__all__ = ["state_dict_from_flax", "rank_state_dict_from_flax", "torch_key",
+           "load_stacked_blocks"]
 
 _SEG_MAP = {
     "weight_net_fc": "weight_net.0",
@@ -102,3 +103,38 @@ def rank_state_dict_from_flax(variables: Mapping[str, Any], specs: Mapping,
     rank takes its model rank's dict as it is."""
     return {k: (shard_tensor(t, specs[k], rank, size) if k in specs else t)
             for k, t in state_dict_from_flax(variables).items()}
+
+
+def _take(tree: Mapping[str, Any], i: int) -> Dict[str, Any]:
+    """Entry ``i`` of the leading axis of every leaf of ``tree``."""
+    return {k: (_take(v, i) if isinstance(v, Mapping) else np.asarray(v)[i])
+            for k, v in tree.items()}
+
+
+def load_stacked_blocks(blocks: Sequence[torch.nn.Module],
+                        variables: Mapping[str, Any], first: int = 0) -> None:
+    """Load flax variables of stacked blocks (the JAX package's
+    ``parallel/pp.py::stack_block_params``: every leaf has a leading axis
+    of ``L`` blocks; numpy leaves) into ``blocks``: ``blocks[j]`` takes
+    block ``first + j``, through :func:`state_dict_from_flax`. The whole
+    chain at ``first = 0``; a pipe rank's stage
+    (``parallel/pp.py::stage_blocks``) at its first block. Raises when the
+    leaves disagree on ``L``, when ``blocks`` reach past it, and on a leaf
+    that a block lacks or a parameter that no leaf gives."""
+    lengths = {int(np.shape(leaf)[0]) for collection in variables.values()
+               for _, leaf in _leaves(collection)}
+    if len(lengths) != 1:
+        raise ValueError(f"stacked leaves of several lengths {lengths}")
+    (L,) = lengths
+    if first < 0 or first + len(blocks) > L:
+        raise ValueError(f"blocks [{first}, {first + len(blocks)}) of a "
+                         f"stack of {L}")
+    for j, blk in enumerate(blocks):
+        sd = state_dict_from_flax({k: _take(v, first + j)
+                                   for k, v in variables.items()})
+        want = set(blk.state_dict())
+        missing, extra = sorted(want - set(sd)), sorted(set(sd) - want)
+        if missing or extra:
+            raise ValueError(f"block {first + j}: missing {missing}, "
+                             f"unexpected {extra}")
+        blk.load_state_dict(sd)

@@ -1,5 +1,5 @@
-"""Data and tensor parallelism with ZeRO-1 across processes (counterpart of
-the JAX package's ``parallel/``).
+"""Data, tensor, sequence and pipeline parallelism with ZeRO-1 across
+processes (counterpart of the JAX package's ``parallel/``).
 
 One process per card, as torchrun starts them: :mod:`.mesh` lays the world
 out as the JAX package's ``(data, model, seq)`` mesh and keeps one process
@@ -8,8 +8,9 @@ trainer call (no-ops on an axis of one rank); :mod:`.tp` shards the
 attention and MLP layers over the ``model`` axis; :mod:`.zero` shards the
 AdamW moments and the EMA over the ``data`` axis. A JAX host maps to a data
 rank of the port: each data rank loads its own shard of the batch, and the
-global batch is ``DATA.BATCH_SIZE x data``. Pipeline parallelism
-(``pp.py``) is not ported.
+global batch is ``DATA.BATCH_SIZE x data``. :mod:`.pp` is GPipe over a
+``(data, pipe)`` layout of its own, a library as JAX's is: no entry
+point, config key or switch reaches it.
 
 Sequence parallelism (the ``seq`` axis, JAX's ``shard_tokens``): the seq
 ranks of a ``(data, model)`` pair load the same images. Each runs every
@@ -39,4 +40,16 @@ over the seq ranks is ``W + sum_s P_s``, the whole gradient, for every
 parameter alike; no parameter needs to be told apart. ZeRO-1 cuts over
 ``data`` only, so the seq ranks of a data rank hold the same blocks, and
 a checkpoint is written by rank 0 for its replicas.
+
+The rule for the pipe axis (:mod:`.pp`), the same in spirit: every pipe
+rank computes the loss whole on the replicated output of the chain. The
+last stage's collected outputs are replicated by an all-reduce whose
+backward is the identity (``comm.reduce_from_model``; a sum's backward
+would hand the chain ``pipe`` times its gradient), and the chain's input
+enters through the identity with an all-reduce backward
+(``comm.copy_to_model``), so every pipe rank gets the input's whole
+gradient, which only the first stage's injections receive. A block's
+gradient lives on its own pipe rank, and the data ranks of that pipe
+rank average it (``comm.all_reduce_mean_`` over the pipe mesh's data
+group), as data parallelism does.
 """

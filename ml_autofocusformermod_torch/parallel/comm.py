@@ -15,7 +15,10 @@ the model needs a gradient through them.
   slice's own: the gradient on the rank's rows, zero elsewhere), and
   :func:`gather_tokens`, every rank's rows put together (all-gather
   forward, reduce-scatter backward: the sum over the seq ranks of the
-  gradient, kept on the rank's rows).
+  gradient, kept on the rank's rows);
+* the pipe axis's hand-off, :func:`shift`: every rank's tensor to the
+  next rank of the group, the previous rank's returned (its backward is
+  the reverse shift).
 
 Every one returns its input (or does nothing) when the group is None or
 has one rank, so a single process runs exactly the ops it runs without
@@ -28,8 +31,10 @@ largest range). Gloo on CUDA tensors implements only ``broadcast`` and
 buffer in which each rank fills its own slot (exact: the other slots add
 zeros) and a reduce-scatter an all-reduce sum of which each rank keeps
 its rows. The token all-gather gathers each rank's rows padded to the
-largest range. Half-precision tensors travel as float32 through gloo.
-The route is chosen by the backend's name, never after a failure.
+largest range, and a shift the previous rank's slot of an all-gather
+(``W`` times the bytes of point-to-point). Half-precision tensors travel
+as float32 through gloo. The route is chosen by the backend's name, never
+after a failure.
 
 The helpers ``data_*`` and :func:`global_draw` read the ambient mesh
 (:func:`.mesh.current`): the model's batch-wide reductions and per-image
@@ -56,7 +61,7 @@ from . import mesh as mesh_lib
 __all__ = ["size", "rank", "all_reduce", "copy_to_model", "reduce_from_model",
            "all_gather", "mirror", "all_reduce_mean_", "data_coords",
            "data_all_reduce", "global_draw", "TokenRange", "token_range_of",
-           "slice_tokens", "gather_tokens", "STATS"]
+           "slice_tokens", "gather_tokens", "shift", "STATS"]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 _BUCKET_BYTES = 32 << 20
@@ -148,12 +153,13 @@ def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
-    """Megatron's g: ``x`` summed over ``group`` (in float32: gloo takes no
-    bfloat16, and the partial sums keep their precision), returned in
-    ``x``'s dtype; the gradient passes as it is."""
+    """Megatron's g: ``x`` summed over ``group`` (in float32 at least: gloo
+    takes no bfloat16, and the partial sums keep their precision),
+    returned in ``x``'s dtype; the gradient passes as it is."""
     if size(group) == 1:
         return x
-    return _ReduceFromModel.apply(x.float(), group).to(x.dtype)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    return _ReduceFromModel.apply(x.to(wide), group).to(x.dtype)
 
 
 def _wide(x: torch.Tensor, group) -> bool:
@@ -345,3 +351,62 @@ def gather_tokens(x: torch.Tensor, tokens: Optional[TokenRange],
     if tokens is None:
         return x
     return _GatherTokens.apply(x, tokens, dim)
+
+
+# -------------------------------------------------------- the pipe axis ----
+
+def _exchange(send: torch.Tensor, recv: torch.Tensor, dst: int, src: int,
+              group) -> None:
+    """Send ``send`` to global rank ``dst`` while receiving ``recv`` from
+    ``src``, and wait for both."""
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, dst, group),
+            dist.P2POp(dist.irecv, recv, src, group)]):
+        req.wait()
+
+
+def _shift_rows(x: torch.Tensor, group, step: int) -> torch.Tensor:
+    """On rank ``r`` of ``group``, the ``x`` of rank ``r - step`` (every
+    rank sends its ``x`` to rank ``r + step``, modulo the group's size)."""
+    w, r = size(group), rank(group)
+    if _route(group, x) == "reduce":
+        return _gather_rows(x, group)[(r - step) % w]
+    src = (x.float() if _wide(x, group) else x).contiguous()
+    out = torch.empty_like(src)
+    _collective(_exchange, x, src, out,
+                dist.get_global_rank(group, (r + step) % w),
+                dist.get_global_rank(group, (r - step) % w), group)
+    return out.to(x.dtype)
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, token, group):
+        ctx.group = group
+        return _shift_rows(x.detach(), group, 1), token.detach().clone()
+
+    @staticmethod
+    def backward(ctx, grad, grad_token):
+        # every rank sends its gradient back, also one that no input of its
+        # own wants, so that the ranks' collectives stay in step
+        back = _shift_rows(grad.contiguous(), ctx.group, -1)
+        return (back if ctx.needs_input_grad[0] else None), grad_token, None
+
+
+def shift(x: torch.Tensor, group, token: Optional[torch.Tensor] = None):
+    """The hand-off of a pipeline: every rank of ``group`` sends ``x`` to
+    the next rank (the last to the first) and gets the previous rank's
+    tensor, of ``x``'s shape and dtype, which it returns. The backward is
+    the reverse shift: each rank sends the gradient of what it got back to
+    the rank that sent it.
+
+    ``token`` (a 0-dim tensor) threads a schedule's shifts into one chain
+    for autograd: the call then returns ``(shifted, next token)``, and a
+    shift whose token comes from an earlier one runs its backward after
+    that one's, on every rank, whatever each rank computed in between.
+    ``x`` itself on a group of one rank."""
+    if size(group) == 1:
+        return x if token is None else (x, token)
+    if token is None:
+        return _Shift.apply(x, x.new_zeros(()), group)[0]
+    return _Shift.apply(x, token, group)

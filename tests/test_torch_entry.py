@@ -101,7 +101,8 @@ def test_import_hygiene():
         "new |= {'ml_autofocusformermod_torch.' + m for m in\n"
         "        ('data.imagenet', 'data.transforms', 'data.native_jpeg',\n"
         "         'data.prefetch', 'ckpt.pth_import', 'parallel.mesh',\n"
-        "         'parallel.comm', 'parallel.tp', 'parallel.zero')}\n"
+        "         'parallel.comm', 'parallel.tp', 'parallel.zero',\n"
+        "         'parallel.pp')}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'ml_autofocusformermod_tpu'))\n"

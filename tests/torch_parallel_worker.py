@@ -33,7 +33,10 @@ the world draws for this rank's block of an activation (``shape`` the
 block's, split along ``dim``), from a generator seeded with ``seed``; of
 ``kind`` ``halo``, a MixResViT ``FeedForward`` (depthwise conv) on a
 ``(h, w)`` token grid at ``seq`` = the world, its output rows and the
-gradients of a loss of the gathered output (:func:`run_halo`).
+gradients of a loss of the gathered output (:func:`run_halo`); of
+``kind`` ``pipe``, a block chain pipelined over a ``(data, pipe)`` mesh
+(``parallel/pp.py``, :func:`run_pipe`); of ``kind`` ``shift``, the pipe
+hand-off alone (:func:`run_shift`).
 
 A spec with ``main`` in place of ``cases`` runs the port's ``main`` once per
 entry (``argv``), one run after another in the same processes, each with
@@ -63,19 +66,25 @@ sys.path.insert(0, ROOT)
 
 from ml_autofocusformermod_torch.ckpt import io as ckpt_io  # noqa: E402
 from ml_autofocusformermod_torch.ckpt.from_jax import (  # noqa: E402
-    rank_state_dict_from_flax,
+    load_stacked_blocks, rank_state_dict_from_flax,
 )
 from ml_autofocusformermod_torch.config import load_config  # noqa: E402
 from ml_autofocusformermod_torch.models.build import build_model  # noqa: E402
 from ml_autofocusformermod_torch.models import (  # noqa: E402
     maskfiner_ot, maskfiner_ud,
 )
-from ml_autofocusformermod_torch.models.layers import Dropout  # noqa: E402
+from ml_autofocusformermod_torch.models.layers import (  # noqa: E402
+    ClusterTransformerBlock, Dropout,
+)
 from ml_autofocusformermod_torch.models.mixres_vit import (  # noqa: E402
     FeedForward,
 )
+from ml_autofocusformermod_torch.ops.cluster_attention import (  # noqa: E402
+    tile_metadata,
+)
 from ml_autofocusformermod_torch.parallel import comm  # noqa: E402
 from ml_autofocusformermod_torch.parallel import mesh as mesh_lib  # noqa: E402
+from ml_autofocusformermod_torch.parallel import pp  # noqa: E402
 from ml_autofocusformermod_torch.parallel.zero import make_layout  # noqa: E402
 from ml_autofocusformermod_torch.train.trainer import (  # noqa: E402
     create_train_state, make_eval_step, make_train_step, throughput,
@@ -111,6 +120,114 @@ def run_halo(case: dict) -> dict:
             "grads": {k: p.grad for k, p in ffn.named_parameters()}}
 
 
+class ToyBlock(torch.nn.Module):
+    """JAX ``tests/test_pp.py::_block``'s parameters: ``w`` (dim, dim) and
+    ``b`` (dim,)."""
+
+    def __init__(self, w, b):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.as_tensor(w).clone())
+        self.b = torch.nn.Parameter(torch.as_tensor(b).clone())
+
+
+def toy_block_fn(blk, x, *consts):
+    """JAX ``tests/test_pp.py::_block``: ``x + tanh(x w + b) + sum(consts)``."""
+    y = torch.tanh(x @ blk.w + blk.b)
+    for c in consts:
+        y = y + c
+    return x + y
+
+
+def aff_block_fn(cs):
+    """A local-attention ``ClusterTransformerBlock`` over the consts
+    ``(ncc, pos, tile_meta)``, clusters of ``cs``."""
+    def fn(blk, x, ncc, pos, meta):
+        return blk(x, False, None, ncc, cs, pos, meta)
+    return fn
+
+
+def build_chain(inputs: dict):
+    """``(blocks, block_fn)`` of a pipe case's inputs: ``toy`` blocks from
+    the stacked ``w`` and ``b``, or AFF blocks (``aff``: dim, heads,
+    rel_width, cs) with no weights loaded."""
+    if "aff" in inputs:
+        a = inputs["aff"]
+        return ([ClusterTransformerBlock(a["dim"], a["heads"], 2.0, 0.0,
+                                         a["rel_width"])
+                 for _ in range(a["blocks"])], aff_block_fn(a["cs"]))
+    return ([ToyBlock(w, b) for w, b in zip(inputs["w"], inputs["b"])],
+            toy_block_fn)
+
+
+def chain_consts(inputs: dict, rows=slice(None)):
+    """The chain's consts on the batch ``rows``: the toy's ``c``, or the
+    AFF chain's ``(ncc, pos, tile_metadata(ncc))``."""
+    if "aff" in inputs:
+        ncc = inputs["ncc"][rows].contiguous()
+        return (ncc, inputs["pos"][rows].contiguous(), tile_metadata(ncc))
+    return tuple(c[rows].contiguous() for c in inputs.get("consts", ()))
+
+
+def chain_loss(inputs: dict, out, rows=slice(None)):
+    """``sum(out * g)`` with the inputs' ``g``, else ``sum(out ** 2)``."""
+    if "g" in inputs:
+        return (out * inputs["g"][rows]).sum()
+    return (out ** 2).sum()
+
+
+def run_pipe(case: dict) -> dict:
+    """This rank's part of a chain pipelined over a ``(data, pipe)`` mesh:
+    its stage of the blocks (the AFF chain's loaded from the stacked flax
+    variables through ``load_stacked_blocks``), on this data rank's rows
+    of the inputs in ``num_microbatches`` microbatches; the output, and
+    with ``grad`` the loss, ``x``'s gradient and the stage's parameter
+    gradients by global block index, averaged over the data line."""
+    mesh = pp.make_pipe_mesh(case["pipe"], case["data"])
+    inputs = torch.load(case["inputs"], weights_only=False)
+    chain, block_fn = build_chain(inputs)
+    stage = pp.stage_blocks(chain, mesh)
+    first = mesh.pipe_rank * len(stage)
+    if "aff" in inputs:
+        load_stacked_blocks(stage, inputs["variables"], first)
+    b = inputs["x"].shape[0] // mesh.data
+    rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+    x = inputs["x"][rows].clone().requires_grad_(case.get("grad", False))
+    calls = comm.STATS["calls"]
+    out = pp.pipeline_blocks(block_fn, stage, x, chain_consts(inputs, rows),
+                             mesh=mesh,
+                             num_microbatches=case["num_microbatches"])
+    res = {"out": out.detach().clone(), "pipe_rank": mesh.pipe_rank,
+           "data_rank": mesh.data_rank}
+    if case.get("grad"):
+        loss = chain_loss(inputs, out, rows)
+        loss.backward()
+        params = {f"{first + j}.{k}": p for j, blk in enumerate(stage)
+                  for k, p in blk.named_parameters()}
+        comm.all_reduce_mean_([p.grad for p in params.values()],
+                              mesh.data_group)
+        res.update(loss=loss.item(), x_grad=x.grad,
+                   grads={k: p.grad for k, p in params.items()})
+    res["comm_calls"] = comm.STATS["calls"] - calls
+    return res
+
+
+def run_shift(case: dict) -> dict:
+    """``comm.shift`` over the world in ``dtype`` on ``device`` (default
+    the CPU): what each rank got for its ``rank + arange(3)``, the
+    gradient of ``sum(got * (rank + 1))`` on what it sent, and the route
+    the collectives took."""
+    mesh = pp.make_pipe_mesh(torch.distributed.get_world_size())
+    device = torch.device(case.get("device", "cpu"))
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+    dtype = getattr(torch, case.get("dtype", "float32"))
+    x = (mesh.rank + torch.arange(3.0)).to(device, dtype).requires_grad_()
+    got = comm.shift(x, mesh.pipe_group)
+    (got.float() * (mesh.rank + 1)).sum().backward()
+    return {"got": got.detach().cpu(), "grad": x.grad.cpu(),
+            "route": comm._route(mesh.pipe_group, x)}
+
+
 def _replay_masks(path, data_rank):
     """A ``random_upsampling_mask`` that returns this data rank's rows of
     the recorded scores."""
@@ -130,17 +247,19 @@ def _wait_for(path: str, timeout: float = 300.0) -> None:
         time.sleep(0.1)
 
 
+KINDS = {"dropout": run_dropout, "halo": run_halo, "pipe": run_pipe,
+         "shift": run_shift}
+
+
 def run_case(case: dict) -> dict:
     if case.get("after"):
         _wait_for(case["after"])
-    if case.get("kind") == "dropout":
-        return run_dropout(case)
-    if case.get("kind") == "halo":
-        return run_halo(case)
     with contextlib.ExitStack() as stack:
         if case.get("route"):
             stack.enter_context(_patched(comm, "_route",
                                          lambda group, t: case["route"]))
+        if case.get("kind"):
+            return KINDS[case["kind"]](case)
         return _run_steps(case, stack)
 
 
