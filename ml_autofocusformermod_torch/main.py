@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import itertools
 import json
 import os
 import sys
@@ -82,7 +83,7 @@ from .utils.flops import model_complexity
 from .utils.logger import create_logger
 from .utils.meters import AverageMeter
 from .utils.metrics_log import MetricsLogger
-from .utils.profiling import STEP_SPAN, StepProfiler
+from .utils.profiling import StepProfiler, span
 
 
 def parse_option(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -243,13 +244,17 @@ def train(config, state, schedule, device, loader, val, logger,
         t0 = time.time()
         t_prev = time.perf_counter()
         # decode, augment and the H2D copy run ahead on two threads
-        for idx, batch in enumerate(prefetch_to_device(loader, device)):
+        batches = prefetch_to_device(loader, device)
+        for idx in itertools.count():
+            profiler.step(state.step)
+            with span("data.wait"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             ts = time.perf_counter()
             wait_seconds.append(ts - t_prev)  # waiting for this batch
-            profiler.step(state.step)
-            with torch.profiler.record_function(STEP_SPAN):
-                # .float(): a DATA.TRANSPORT_DTYPE float16 batch
-                metrics = train_step(batch["image"].float(), batch["label"])
+            # .float(): a DATA.TRANSPORT_DTYPE float16 batch
+            metrics = train_step(batch["image"].float(), batch["label"])
             loss = metrics["loss"].item()  # waits for the step
             step_seconds.append(time.perf_counter() - ts)
             meters["loss"].update(loss)

@@ -35,6 +35,7 @@ from ..ops.cluster_merge import fused_cluster_merge
 from ..ops.clusten import wf_contract
 from ..ops.knn import nearest_other_distance
 from ..parallel import comm
+from ..utils.profiling import span
 
 __all__ = [
     "Linear", "LayerNormFp32", "rel_pos_features", "Dropout", "DropPath",
@@ -440,39 +441,42 @@ class ClusterMerging(nn.Module):
         d = pos.shape[2]
         keep_num = int(n * self.ds_rate)
 
-        # --- grid prior (aff_transformer.py:295-301) ---
-        if stride == 2:
-            grid_prob = ((pos % stride).sum(-1) == 0).float()
-        else:
-            min_dist = nearest_other_distance(pos)  # b x n
-            ada_stride = 2.0 ** (torch.ceil(torch.log2(min_dist)) + 1)
-            grid_prob = (
-                (pos.int() % ada_stride[..., None].int()).sum(-1) == 0
-            ).float()
-        final_prob = grid_prob + (
-            learned_prob.detach().reshape(b, n).float() * self.alpha)
+        with span("geom.merge_select"):
+            # --- grid prior (aff_transformer.py:295-301) ---
+            if stride == 2:
+                grid_prob = ((pos % stride).sum(-1) == 0).float()
+            else:
+                min_dist = nearest_other_distance(pos)  # b x n
+                ada_stride = 2.0 ** (torch.ceil(torch.log2(min_dist)) + 1)
+                grid_prob = (
+                    (pos.int() % ada_stride[..., None].int()).sum(-1) == 0
+                ).float()
+            final_prob = grid_prob + (
+                learned_prob.detach().reshape(b, n).float() * self.alpha)
 
-        # --- reserve tokens on a coarse grid ---
-        if self.reserve_on:
-            reserve_mask = ((pos % (stride * 2)).sum(-1) == 0).float()
-            final_prob = final_prob + reserve_mask * (-100.0)
-            sample_num = keep_num - reserve_num
-        else:
-            sample_num = keep_num
+            # --- reserve tokens on a coarse grid ---
+            if self.reserve_on:
+                reserve_mask = ((pos % (stride * 2)).sum(-1) == 0).float()
+                final_prob = final_prob + reserve_mask * (-100.0)
+                sample_num = keep_num - reserve_num
+            else:
+                sample_num = keep_num
 
-        # --- top-k centres: a stable descending sort puts the lower index
-        # first on ties, as jax.lax.top_k does (torch.topk promises no
-        # order); reserve indices come out in index order ---
-        sample_idx = torch.sort(final_prob, dim=-1, descending=True,
-                                stable=True)[1][:, :sample_num]
-        if self.reserve_on:
-            reserve_idx = torch.sort(reserve_mask, dim=-1, descending=True,
-                                     stable=True)[1][:, :reserve_num]
-            idx = torch.cat([sample_idx, reserve_idx], dim=-1)
-        else:
-            idx = sample_idx
-        if idx.shape[1] != keep_num:
-            raise ValueError(f"selected {idx.shape[1]} centres != {keep_num}")
+            # --- top-k centres: a stable descending sort puts the lower
+            # index first on ties, as jax.lax.top_k does (torch.topk
+            # promises no order); reserve indices come out in index order ---
+            sample_idx = torch.sort(final_prob, dim=-1, descending=True,
+                                    stable=True)[1][:, :sample_num]
+            if self.reserve_on:
+                reserve_idx = torch.sort(reserve_mask, dim=-1,
+                                         descending=True,
+                                         stable=True)[1][:, :reserve_num]
+                idx = torch.cat([sample_idx, reserve_idx], dim=-1)
+            else:
+                idx = sample_idx
+            if idx.shape[1] != keep_num:
+                raise ValueError(
+                    f"selected {idx.shape[1]} centres != {keep_num}")
 
         new_pos = gather_rows(pos, idx)
         R = self.rel_pos_width

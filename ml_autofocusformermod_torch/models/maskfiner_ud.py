@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.cluster_gather import gather_rows
+from ..utils.profiling import span
 from .layers import Linear
 from .maskfiner_ot import build_backbones
 from .maskfiner_ot import random_upsampling_mask as _draw_mask
@@ -51,10 +52,12 @@ def align_to_order(pos_org: torch.Tensor,
     """``idx`` with ``pos_shuffled[b, idx[b, t]] == pos_org[b, t]`` when
     the two sets are equal up to a permutation: a double stable argsort of
     integer keys, O(n log n)."""
-    p = torch.argsort(_pos_key(pos_shuffled), dim=1, stable=True)
-    rank = torch.argsort(torch.argsort(_pos_key(pos_org), dim=1, stable=True),
-                         dim=1, stable=True)
-    return torch.gather(p, 1, rank)
+    with span("geom.reorder"):
+        p = torch.argsort(_pos_key(pos_shuffled), dim=1, stable=True)
+        rank = torch.argsort(
+            torch.argsort(_pos_key(pos_org), dim=1, stable=True),
+            dim=1, stable=True)
+        return torch.gather(p, 1, rank)
 
 
 def max_norm_upsampling_mask(features: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.cluster_gather import gather_rows
+from ..utils.profiling import span
 from .layers import LayerNormFp32, Linear, batch_norm_train
 
 __all__ = [
@@ -106,14 +107,15 @@ def extract_scale(feat: torch.Tensor, pos: torch.Tensor, scale: int,
     relative order, and the rest: ``(feat_s, pos_s, feat_r, pos_r[,
     extra_s])``. A stable argsort on the mismatch flag (JAX package
     ``mixres_common.py:81-103``)."""
-    mismatch = (pos[:, :, 0] != scale).to(torch.int32)
-    order = torch.argsort(mismatch, dim=1, stable=True)  # matches first
-    sel, rest = order[:, :count], order[:, count:]
-    out = (gather_rows(feat, sel), gather_rows(pos, sel),
-           gather_rows(feat, rest), gather_rows(pos, rest))
-    if extra is not None:
-        return out + (gather_rows(extra, sel),)
-    return out
+    with span("geom.reorder"):
+        mismatch = (pos[:, :, 0] != scale).to(torch.int32)
+        order = torch.argsort(mismatch, dim=1, stable=True)  # matches first
+        sel, rest = order[:, :count], order[:, count:]
+        out = (gather_rows(feat, sel), gather_rows(pos, sel),
+               gather_rows(feat, rest), gather_rows(pos, rest))
+        if extra is not None:
+            return out + (gather_rows(extra, sel),)
+        return out
 
 
 class MLPBlock(nn.Module):

@@ -30,6 +30,7 @@ from ..ops.cluster_gather import gather_rows
 from ..ops.knn import knn
 from ..ops.sfc import space_filling_cluster
 from ..parallel import comm
+from ..utils.profiling import span
 from .layers import ClusterTransformerBlock, LayerNormFp32, Linear, \
     check_remat, rel_pos_features, remat_call
 from .mixres_common import (
@@ -196,10 +197,12 @@ class MixResNeighbour(nn.Module):
         scores backward."""
         n_ = feat.shape[1]
         k_split = int(n_ * self.upscale_ratio)
-        order = torch.argsort(scores, dim=1, stable=True)
-        bottom_idx, top_idx = order[:, :n_ - k_split], order[:, n_ - k_split:]
-        soft = torch.softmax(scores.float(), dim=1)
-        ste = soft - soft.detach()  # 0 forward, gradient flows
+        with span("geom.split_select"):
+            order = torch.argsort(scores, dim=1, stable=True)
+            bottom_idx = order[:, :n_ - k_split]
+            top_idx = order[:, n_ - k_split:]
+            soft = torch.softmax(scores.float(), dim=1)
+            ste = soft - soft.detach()  # 0 forward, gradient flows
         g_split = torch.gather(1.0 + ste, 1, top_idx)
         g_keep = torch.gather(1.0 + (-ste), 1, bottom_idx)
         tokens_to_split = (gather_rows(feat, top_idx)

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from ..utils.profiling import span
 from . import _build
 from .cluster_gather import cluster_token_index, gather_clusters
 
@@ -183,26 +184,27 @@ def tile_metadata(ncc):
     ``ncc`` (plain torch, on ``ncc``'s device). A batch-broadcast ``ncc``
     (stride 0) gives one image's metadata. Counted in
     ``tile_metadata.calls``."""
-    tile_metadata.calls += 1
-    if ncc.shape[0] > 1 and ncc.stride(0) == 0:
-        ncc = ncc[:1]
-    B, n, nnc = ncc.shape
-    nt = -(-n // TILE)
-    rows = ncc.long()
-    if nt * TILE != n:
-        rows = torch.cat([rows, rows[:, -1:].expand(B, nt * TILE - n, nnc)],
-                         dim=1)
-    ids = rows.reshape(B, nt, TILE * nnc)
-    srt, perm = torch.sort(ids, dim=-1)
-    new = torch.ones_like(srt, dtype=torch.bool)
-    new[..., 1:] = srt[..., 1:] != srt[..., :-1]
-    rank = torch.cumsum(new, dim=-1) - 1  # union index of each sorted id
-    nidx = torch.empty_like(rank).scatter_(-1, perm, rank)
-    nidx = torch.sort(nidx.reshape(B, nt * TILE, nnc), dim=-1)[0]
-    ucl = torch.zeros_like(srt).scatter_(-1, rank, srt)
-    ucount = rank[..., -1] + 1 if nnc else rank.new_zeros((B, nt))
-    i32 = torch.int32
-    return TileMeta(ucl.to(i32), ucount.to(i32), nidx.to(i32))
+    with span("geom.tile_metadata"):
+        tile_metadata.calls += 1
+        if ncc.shape[0] > 1 and ncc.stride(0) == 0:
+            ncc = ncc[:1]
+        B, n, nnc = ncc.shape
+        nt = -(-n // TILE)
+        rows = ncc.long()
+        if nt * TILE != n:
+            rows = torch.cat(
+                [rows, rows[:, -1:].expand(B, nt * TILE - n, nnc)], dim=1)
+        ids = rows.reshape(B, nt, TILE * nnc)
+        srt, perm = torch.sort(ids, dim=-1)
+        new = torch.ones_like(srt, dtype=torch.bool)
+        new[..., 1:] = srt[..., 1:] != srt[..., :-1]
+        rank = torch.cumsum(new, dim=-1) - 1  # union index of each sorted id
+        nidx = torch.empty_like(rank).scatter_(-1, perm, rank)
+        nidx = torch.sort(nidx.reshape(B, nt * TILE, nnc), dim=-1)[0]
+        ucl = torch.zeros_like(srt).scatter_(-1, rank, srt)
+        ucount = rank[..., -1] + 1 if nnc else rank.new_zeros((B, nt))
+        i32 = torch.int32
+        return TileMeta(ucl.to(i32), ucount.to(i32), nidx.to(i32))
 
 
 tile_metadata.calls = 0

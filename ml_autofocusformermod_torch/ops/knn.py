@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
+
 __all__ = ["knn", "nearest_other_distance"]
 
 
@@ -40,12 +42,13 @@ def knn(query: torch.Tensor, database: torch.Tensor, k: int,
         gives the same order as the JAX package's k argmin sweeps
         (``knn.py:21-40``).
     """
-    dist_sq = _dist_sq(query, database)
-    top, nn_idx = torch.sort(dist_sq, dim=-1, stable=True)
-    nn_idx = nn_idx[..., :k].to(torch.int32)
-    if return_dist:
-        return nn_idx, torch.sqrt(top[..., :k].clamp_min(0.0))
-    return nn_idx
+    with span("geom.knn"):
+        dist_sq = _dist_sq(query, database)
+        top, nn_idx = torch.sort(dist_sq, dim=-1, stable=True)
+        nn_idx = nn_idx[..., :k].to(torch.int32)
+        if return_dist:
+            return nn_idx, torch.sqrt(top[..., :k].clamp_min(0.0))
+        return nn_idx
 
 
 def nearest_other_distance(pos: torch.Tensor) -> torch.Tensor:

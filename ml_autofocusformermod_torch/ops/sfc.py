@@ -24,6 +24,8 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 __all__ = [
     "space_filling_cluster",
     "grid_cluster",
@@ -120,49 +122,55 @@ def space_filling_cluster(pos: torch.Tensor, m: int, h: int, w: int,
         ``(pos_sorted (b,n,2), cluster_mean_pos (b,k,2), member_idx (b,k,m),
         cluster_mask (b,k,m) int32 or None, pos_ranking (b,n,1))``
     """
-    pos = pos.detach().float()
-    b, n, d = pos.shape
-    k = int(math.ceil(n / m))
-    num_patch_w, patch_len_hw, anchor_rank, prev_means, next_means = (
-        _device_anchor_tables(h, w, k, pos.device)
-    )
-
-    cell = torch.floor(pos / patch_len_hw)
-    cell_idx = (cell[..., 0] + cell[..., 1] * num_patch_w).long()
-    assign = anchor_rank[cell_idx]  # b x n, curve rank of the token's anchor
-    dist_prev = ((pos - prev_means[assign]) ** 2).sum(-1)
-    dist_next = ((pos - next_means[assign]) ** 2).sum(-1)
-    dist_ratio = dist_prev / (dist_next + 1e-5)
-    # the max runs over the WHOLE batch, not per image (sfc.py:348)
-    ratio_max = dist_ratio.max()
-    if batch_max is not None:
-        ratio_max = batch_max(ratio_max)
-    key = assign.float() * (ratio_max + 1) + dist_ratio
-    pos_ranking = torch.argsort(key, dim=1, stable=True)  # b x n
-
-    pos_sorted = torch.gather(pos, 1, pos_ranking[..., None].expand(b, n, d))
-    if k * m == n:
-        cluster_mask = None
-        cluster_mean_pos = pos_sorted.reshape(b, k, m, d).mean(2)
-    else:
-        pad = k * m - n
-        pos_pad = torch.cat([pos_sorted, pos.new_zeros((b, pad, d))], dim=1)
-        mask_flat = torch.cat(
-            [
-                torch.ones((b, n), dtype=torch.int32, device=pos.device),
-                torch.zeros((b, pad), dtype=torch.int32, device=pos.device),
-            ],
-            dim=1,
+    with span("geom.sfc"):
+        pos = pos.detach().float()
+        b, n, d = pos.shape
+        k = int(math.ceil(n / m))
+        num_patch_w, patch_len_hw, anchor_rank, prev_means, next_means = (
+            _device_anchor_tables(h, w, k, pos.device)
         )
-        cluster_mask = mask_flat.reshape(b, k, m)
-        cluster_mean_pos = pos_pad.reshape(b, k, m, d).sum(2) / cluster_mask.sum(
-            2, keepdim=True
-        ).float()
 
-    member_idx = torch.arange(k * m, device=pos.device)
-    member_idx = torch.where(member_idx < n, member_idx, 0)
-    member_idx = member_idx[None].expand(b, k * m).reshape(b, k, m)
-    return pos_sorted, cluster_mean_pos, member_idx, cluster_mask, pos_ranking[..., None]
+        cell = torch.floor(pos / patch_len_hw)
+        cell_idx = (cell[..., 0] + cell[..., 1] * num_patch_w).long()
+        # b x n, curve rank of the token's anchor
+        assign = anchor_rank[cell_idx]
+        dist_prev = ((pos - prev_means[assign]) ** 2).sum(-1)
+        dist_next = ((pos - next_means[assign]) ** 2).sum(-1)
+        dist_ratio = dist_prev / (dist_next + 1e-5)
+        # the max runs over the WHOLE batch, not per image (sfc.py:348)
+        ratio_max = dist_ratio.max()
+        if batch_max is not None:
+            ratio_max = batch_max(ratio_max)
+        key = assign.float() * (ratio_max + 1) + dist_ratio
+        pos_ranking = torch.argsort(key, dim=1, stable=True)  # b x n
+
+        pos_sorted = torch.gather(pos, 1,
+                                  pos_ranking[..., None].expand(b, n, d))
+        if k * m == n:
+            cluster_mask = None
+            cluster_mean_pos = pos_sorted.reshape(b, k, m, d).mean(2)
+        else:
+            pad = k * m - n
+            pos_pad = torch.cat([pos_sorted, pos.new_zeros((b, pad, d))],
+                                dim=1)
+            mask_flat = torch.cat(
+                [
+                    torch.ones((b, n), dtype=torch.int32,
+                               device=pos.device),
+                    torch.zeros((b, pad), dtype=torch.int32,
+                                device=pos.device),
+                ],
+                dim=1,
+            )
+            cluster_mask = mask_flat.reshape(b, k, m)
+            cluster_mean_pos = (pos_pad.reshape(b, k, m, d).sum(2)
+                                / cluster_mask.sum(2, keepdim=True).float())
+
+        member_idx = torch.arange(k * m, device=pos.device)
+        member_idx = torch.where(member_idx < n, member_idx, 0)
+        member_idx = member_idx[None].expand(b, k * m).reshape(b, k, m)
+        return (pos_sorted, cluster_mean_pos, member_idx, cluster_mask,
+                pos_ranking[..., None])
 
 
 @functools.lru_cache(maxsize=None)

@@ -38,6 +38,7 @@ import torch
 
 from ..parallel import tp as tp_lib
 from ..parallel import zero as zero_lib
+from ..utils.profiling import span
 
 __all__ = ["Optimizer", "build_optimizer", "no_weight_decay_mask",
            "global_norm", "scale_base_lr"]
@@ -142,7 +143,9 @@ class Optimizer:
     def _inner(self, grads: Mapping[str, torch.Tensor]) -> None:
         if self.clip and self.clip > 0:
             norm = self.global_norm(grads)
-            if not bool(norm < self.clip):
+            with span("sync.clip"):
+                below = bool(norm < self.clip)
+            if not below:
                 grads = {k: (g / norm) * self.clip for k, g in grads.items()}
         lr = self.schedule(self.state["sched_count"])
         if self.name == "adamw":

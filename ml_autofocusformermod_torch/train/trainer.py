@@ -46,6 +46,7 @@ from ..models.layers import ClusterAttention, Dropout, DropPath
 from ..parallel import comm
 from ..parallel import mesh as mesh_lib
 from ..parallel import zero as zero_lib
+from ..utils.profiling import STEP_SPAN, span
 from .losses import mixup_cutmix, smooth_one_hot, soft_target_cross_entropy
 from .optim import Optimizer, build_optimizer
 from .schedulers import build_scheduler
@@ -150,7 +151,8 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor],
     + 1. Returns ``(grad_norm, finite)``. ``grads`` are this rank's
     blocks of the full (data-averaged) gradients."""
     grad_norm = state.optimizer.global_norm(grads)
-    finite = bool(torch.isfinite(grad_norm))
+    with span("sync.grads_finite"):
+        finite = bool(torch.isfinite(grad_norm))
     if finite:
         state.optimizer.step(grads)
     if state.ema is not None and (state.step + 1) % accum == 0:
@@ -189,7 +191,9 @@ def make_train_step(config, state: TrainState, schedule: Callable) -> Callable:
     """``train_step(images, labels) -> metrics`` over ``state``:
     ``loss``, ``grad_norm`` (before clipping), ``grads_finite`` and ``lr``
     (the schedule at this optimizer step). Each step first checks that the
-    ambient mesh is the state's layout's (:func:`check_mesh`)."""
+    ambient mesh is the state's layout's (:func:`check_mesh`). Under a
+    profiler a step is one ``train_step`` span holding its ``.forward``,
+    ``.backward`` and ``.optimizer`` (``utils/profiling.py``)."""
     num_classes = config.MODEL.NUM_CLASSES
     smoothing = config.MODEL.LABEL_SMOOTHING
     mixup_on = config.AUG.MIXUP > 0 or config.AUG.CUTMIX > 0
@@ -206,37 +210,44 @@ def make_train_step(config, state: TrainState, schedule: Callable) -> Callable:
         return comm.mirror(t, data_group).flip(0)
 
     def train_step(images: torch.Tensor, labels: torch.Tensor) -> dict:
-        check_mesh(state.layout)
-        model.train()
-        if state.elem_generator is not None:
-            state.elem_generator.manual_seed(
-                elem_step_seed(state.elem_seed, state.step))
-        if mixup_on:
-            images, target = mixup_cutmix(
-                state.mix_generator, images, labels, num_classes,
-                mixup_alpha=config.AUG.MIXUP, cutmix_alpha=config.AUG.CUTMIX,
-                prob=config.AUG.MIXUP_PROB,
-                switch_prob=config.AUG.MIXUP_SWITCH_PROB, smoothing=smoothing,
-                partner=partner)
-        else:
-            target = smooth_one_hot(labels, num_classes, smoothing)
-        for p in params.values():
-            p.grad = None
-        loss = model_loss(model(images), target)
-        loss.backward()
-        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for k, p in params.items()}
-        # the mean of the ranks' gradients of their batch means: the
-        # gradient of the global batch's mean (over the seq ranks too:
-        # parallel/__init__.py)
-        comm.all_reduce_mean_(grads.values(), replica_group)
-        lr = schedule(state.step // accum)
-        grad_norm, finite = apply_gradients(state, grads, accum, ema_decay)
-        loss = loss.detach()
-        if data > 1:
-            loss = comm.all_reduce(loss, data_group) / data
-        return {"loss": loss, "grad_norm": grad_norm.detach(),
-                "grads_finite": finite, "lr": lr}
+        with span(STEP_SPAN):
+            check_mesh(state.layout)
+            model.train()
+            if state.elem_generator is not None:
+                state.elem_generator.manual_seed(
+                    elem_step_seed(state.elem_seed, state.step))
+            with span(STEP_SPAN + ".forward"):
+                if mixup_on:
+                    images, target = mixup_cutmix(
+                        state.mix_generator, images, labels, num_classes,
+                        mixup_alpha=config.AUG.MIXUP,
+                        cutmix_alpha=config.AUG.CUTMIX,
+                        prob=config.AUG.MIXUP_PROB,
+                        switch_prob=config.AUG.MIXUP_SWITCH_PROB,
+                        smoothing=smoothing, partner=partner)
+                else:
+                    target = smooth_one_hot(labels, num_classes, smoothing)
+                for p in params.values():
+                    p.grad = None
+                loss = model_loss(model(images), target)
+            with span(STEP_SPAN + ".backward"):
+                loss.backward()
+            with span(STEP_SPAN + ".optimizer"):
+                grads = {k: (p.grad if p.grad is not None
+                             else torch.zeros_like(p))
+                         for k, p in params.items()}
+                # the mean of the ranks' gradients of their batch means:
+                # the gradient of the global batch's mean (over the seq
+                # ranks too: parallel/__init__.py)
+                comm.all_reduce_mean_(grads.values(), replica_group)
+                lr = schedule(state.step // accum)
+                grad_norm, finite = apply_gradients(state, grads, accum,
+                                                    ema_decay)
+                loss = loss.detach()
+                if data > 1:
+                    loss = comm.all_reduce(loss, data_group) / data
+            return {"loss": loss, "grad_norm": grad_norm.detach(),
+                    "grads_finite": finite, "lr": lr}
 
     return train_step
 

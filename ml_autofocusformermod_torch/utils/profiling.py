@@ -4,20 +4,52 @@
 Set ``PROFILE: /path/to/dir`` (or ``--profile DIR``) and the train steps
 ``[PROFILE_START, PROFILE_START + PROFILE_STEPS)`` of the run are traced:
 CPU activity, and CUDA activity on the card, written as one Chrome trace
-(``trace_<pid>.json``, viewable in Perfetto or TensorBoard). The trainer
-marks each step with a ``train_step`` span (:data:`STEP_SPAN`).
+(``trace_<pid>.json``, viewable in Perfetto or TensorBoard).
+
+The program marks its layers with :func:`span`, which records a
+``torch.profiler.record_function`` range only while a profiler is
+recording, so the spans share the trace's clock with the kernels they
+launch:
+
+* ``train_step`` (:data:`STEP_SPAN`), around each step of
+  ``train/trainer.py::make_train_step``, holding ``train_step.forward``
+  (targets, mixup, clearing the gradients, the model and its loss),
+  ``train_step.backward`` (``loss.backward()``) and
+  ``train_step.optimizer`` (the gradients' mean over ranks, norm, clip,
+  AdamW, EMA, the loss's all-reduce);
+* ``sync.grads_finite`` and ``sync.clip``, around the two reads of a
+  device value that make the host wait for the device in every step: a
+  sync span lasts as long as the host waits;
+* ``geom.sfc``, ``geom.knn``, ``geom.tile_metadata``, ``geom.merge_select``,
+  ``geom.split_select`` and ``geom.reorder``: the token geometry
+  (clustering, neighbours, attention tiles, token selection and
+  reordering);
+* ``data.wait``, around ``main``'s fetch of the next batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["StepProfiler", "STEP_SPAN"]
+__all__ = ["StepProfiler", "STEP_SPAN", "span"]
 
 STEP_SPAN = "train_step"
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while a profiler records, else a
+    shared null context: off, a span costs one flag read (an idle
+    ``record_function`` costs about 13 us on the host)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class StepProfiler:
