@@ -28,17 +28,16 @@ row-parallel product (:mod:`.comm`).
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterable, Mapping, Tuple
+from typing import Dict, Iterable, Tuple
 
 import torch
 import torch.nn as nn
 
 from ..models.layers import ClusterAttention, Mlp
 from ..models.mixres_vit import Attention, FeedForward
-from . import comm
 
 __all__ = ["RULES", "spec_for_key", "plan", "shard_model", "shard_tensor",
-           "unshard", "jax_dim_order", "global_norm"]
+           "unshard", "jax_dim_order"]
 
 # (key regex, sharded torch dim, interleaved parts). First match wins.
 RULES = (
@@ -151,16 +150,3 @@ def jax_dim_order(key: str, ndim: int) -> Tuple[int, ...]:
         return (2, 3, 1, 0)
     return tuple(range(ndim))
 
-
-def global_norm(grads: Mapping[str, torch.Tensor], sharded: Iterable[str],
-                group) -> torch.Tensor:
-    """``optax.global_norm`` of the full gradients from this rank's blocks:
-    the squares of the sharded leaves summed over ``group`` (each counted
-    once), the replicated leaves' added once."""
-    sharded = set(sharded)
-    rep = [g for k, g in grads.items() if k not in sharded]
-    sh = [g for k, g in grads.items() if k in sharded]
-    zero = next(iter(grads.values())).new_zeros(())
-    sq_rep = sum((torch.sum(g * g) for g in rep), zero)
-    sq_sh = sum((torch.sum(g * g) for g in sh), zero)
-    return torch.sqrt(sq_rep + comm.all_reduce(sq_sh, group))

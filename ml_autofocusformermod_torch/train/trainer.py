@@ -147,9 +147,10 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor],
                     accum: int, ema_decay: float):
     """Everything of a train step after the backward
     (``trainer.py:130-168``): the global norm of ``grads``, the optimizer
-    step when it is finite, the EMA on accumulation boundaries, ``step``
-    + 1. Returns ``(grad_norm, finite)``. ``grads`` are this rank's
-    blocks of the full (data-averaged) gradients."""
+    step when it is finite (its clip reuses the norm), the EMA on
+    accumulation boundaries (multi-tensor ops, as the optimizer's update),
+    ``step`` + 1. Returns ``(grad_norm, finite)``. ``grads`` are this
+    rank's blocks of the full (data-averaged) gradients."""
     grad_norm = state.optimizer.global_norm(grads)
     with span("sync.grads_finite"):
         finite = bool(torch.isfinite(grad_norm))
@@ -157,9 +158,13 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor],
         state.optimizer.step(grads)
     if state.ema is not None and (state.step + 1) % accum == 0:
         with torch.no_grad():
-            for k, t in ema_tensors(state.model).items():
-                e, t = state.ema[k], state.optimizer.zero_block(k, t)
-                e.copy_(e * ema_decay + t.to(e.dtype) * (1.0 - ema_decay))
+            src = ema_tensors(state.model)
+            ema = list(state.ema.values())
+            new = [state.optimizer.zero_block(k, src[k]).to(e.dtype)
+                   for k, e in state.ema.items()]
+            new = torch._foreach_mul(new, 1.0 - ema_decay)
+            torch._foreach_mul_(ema, ema_decay)
+            torch._foreach_add_(ema, new)
     state.step += 1
     return grad_norm, finite
 

@@ -25,6 +25,13 @@ launch:
   (clustering, neighbours, attention tiles, token selection and
   reordering);
 * ``data.wait``, around ``main``'s fetch of the next batch.
+
+Counters that need no profiler sit on the functions that do the work, as
+function attributes: the kernels' launches
+(``ops/cluster_attention.py::fused_cluster_attention.launches``, ...) and
+the optimizer's list updates, ``train/optim.py::multi_tensor_update.steps``
+(updates made) and ``.leaves`` (parameters they updated: every leaf of
+the model, 258 for AFF-Mini and 458 for UD-Mini, in each update).
 """
 
 from __future__ import annotations

@@ -59,6 +59,8 @@ TINY = {  # tests/test_tp.py::_tiny_cfg
     "MODEL.DROP_PATH_RATE": 0.0,
 }
 MIX = {"AUG.MIXUP": 0.8, "AUG.CUTMIX": 1.0, "MODEL.DROP_PATH_RATE": 0.1}
+# a clip below the tiny AFF's gradient norms (about 2.9): every step clips
+CLIP = {"TRAIN.CLIP_GRAD": 1.0}
 GLOBAL_BATCH = 8
 # name: (data, model, zero1)
 LAYOUTS = {"dp": (2, 1, False), "zero": (2, 1, True), "tp": (1, 2, False),
@@ -216,19 +218,24 @@ def runs(tmp_path_factory):
     jax_ref["tp22"] = jax_ref["tp22_zero"]
 
     # the port's one-process steps of the global batch, mixup on; the
-    # checkpoint after the first one
-    cfg = load_config(PORT_CFG, opts=_opts(1, **MIX))
-    model = build_model(cfg, "cpu")
-    state, schedule = trainer.create_train_state(cfg, model, 10)
-    step = trainer.make_train_step(cfg, state, schedule)
-    one = {"metrics": []}
-    for i, (x, y) in enumerate(batches):
-        m = step(torch.from_numpy(x), torch.from_numpy(y))
-        one["metrics"].append({"loss": m["loss"].item(),
-                               "grad_norm": m["grad_norm"].item()})
-        if i == 0:
-            ckpt_io.save_checkpoint(os.path.join(tmp, "one"), 0, state, 0.0)
-    one["full"] = ckpt_io._payload(state, 0, 0.0)["state"]
+    # checkpoint after the first one; again with every step clipped
+    def one_process(**extra):
+        cfg = load_config(PORT_CFG, opts=_opts(1, **MIX, **extra))
+        model = build_model(cfg, "cpu")
+        state, schedule = trainer.create_train_state(cfg, model, 10)
+        step = trainer.make_train_step(cfg, state, schedule)
+        one = {"metrics": []}
+        for i, (x, y) in enumerate(batches):
+            m = step(torch.from_numpy(x), torch.from_numpy(y))
+            one["metrics"].append({"loss": m["loss"].item(),
+                                   "grad_norm": m["grad_norm"].item()})
+            if i == 0 and not extra:
+                ckpt_io.save_checkpoint(os.path.join(tmp, "one"), 0, state,
+                                        0.0)
+        one["full"] = ckpt_io._payload(state, 0, 0.0)["state"]
+        return one
+
+    one, one_clip = one_process(), one_process(**CLIP)
 
     def case(name, mix, data, model, zero1, **extra):
         return {"name": name, "cfg": PORT_CFG,
@@ -245,12 +252,17 @@ def runs(tmp_path_factory):
             cases.append(case(name + "/mix", True, data, model, zero1,
                               batches=os.path.join(tmp, "batches.pt")))
     four[-1]["save"] = os.path.join(tmp, "ranks")
+    clip = case("clip/mix", True, 2, 1, True,
+                batches=os.path.join(tmp, "batches.pt"))
+    clip["opts"] = _opts(2, **MIX, **CLIP)
+    two.append(clip)
     two.append(case("resume", True, 2, 1, True,
                     resume=os.path.join(tmp, "one", "ckpt_epoch_0.pt"),
                     batches=os.path.join(tmp, "batch2.pt")))
     ranks = {2: launch(os.path.join(tmp, "two"), 2, two),
              4: launch(os.path.join(tmp, "four"), 4, four)}
-    return {"jax": jax_ref, "one": one, "ranks": ranks, "tmp": tmp}
+    return {"jax": jax_ref, "one": one, "one_clip": one_clip,
+            "ranks": ranks, "tmp": tmp}
 
 
 def _lrs(runs):
@@ -305,18 +317,24 @@ def _assert_state_close(full, ref, what, lrs=()):
         assert diff <= 2 * sum(lrs) * 1.001, (what, name, diff, lrs)
 
 
-@pytest.mark.parametrize("name", ["dp", "zero", "tp", "tp22_zero"])
+@pytest.mark.parametrize("name", ["dp", "zero", "tp", "tp22_zero", "clip"])
 def test_two_steps_match_one_process(runs, name):
     """Two steps with mixup, cutmix and DropPath on equal the one-process
     steps of the global batch: loss and grad norm (rel 1e-5) on every rank,
-    and the gathered parameters, moments and EMA."""
+    and the gathered parameters, moments and EMA. ``clip``: data 2 with
+    ZeRO-1 at a clip below every step's gradient norm, so AdamW updates
+    the cut leaves' blocks from clipped gradients."""
+    one = runs["one_clip" if name == "clip" else "one"]
+    if name == "clip":
+        assert min(m["grad_norm"] for m in one["metrics"]) > \
+            CLIP["TRAIN.CLIP_GRAD"]
     ranks = _ranks(runs, name + "/mix")
     for r in ranks:
-        for m, ref in zip(r["metrics"], runs["one"]["metrics"]):
+        for m, ref in zip(r["metrics"], one["metrics"]):
             assert m["loss"] == pytest.approx(ref["loss"], rel=1e-5)
             assert m["grad_norm"] == pytest.approx(ref["grad_norm"],
                                                    rel=1e-5)
-    _assert_state_close(ranks[0]["full"], runs["one"]["full"], name,
+    _assert_state_close(ranks[0]["full"], one["full"], name,
                         [m["lr"] for m in ranks[0]["metrics"]])
 
 

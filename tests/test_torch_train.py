@@ -41,6 +41,8 @@ from ml_autofocusformermod_tpu.train import optim as jax_optim
 from ml_autofocusformermod_tpu.train import schedulers as jax_schedulers
 from ml_autofocusformermod_tpu.train import trainer as jax_trainer
 
+import torch_optim_reference
+
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_CFG = os.path.join(ROOT, "ml_autofocusformermod_torch", "configs",
@@ -175,6 +177,117 @@ def test_optimizer_chain_matches_optax():
         assert state.step == step + 1
     # 5 micro-steps, one skipped: two optimizer updates
     assert state.optimizer.state["count"] == 2
+
+
+# --------------------------------------- the multi-tensor update ----
+
+def _leaves_case(every_k, name="adamw", clip=1.0):
+    """A train state over a tiny model with decayed (``w``, ``v``, ``c``)
+    and undecayed (``b``, ``s``; ``stat`` aside) leaves, and 4
+    micro-gradients whose norms are about 0.3, 0.1, 6 and 13: clip 1.0
+    leaves the first two (and with ``every_k`` 2 their mean) as they are
+    and clips the others. ``c``'s gradients have other strides than ``c``
+    in its size-1 dim, as autograd may give them (UD-Mini's depthwise conv
+    weights get such gradients)."""
+    port_cfg, _ = _configs(**{
+        "TRAIN.ACCUMULATION_STEPS": every_k, "TRAIN.CLIP_GRAD": clip,
+        "TRAIN.OPTIMIZER.NAME": name, "TRAIN.BASE_LR": 0.05,
+        "TRAIN.WARMUP_LR": 0.01, "TRAIN.EPOCHS": 3,
+        "TRAIN.WARMUP_EPOCHS": 1, "TRAIN.USE_EMA": True,
+        "TRAIN.EMA_DECAY": 0.5})
+    rng = np.random.default_rng(3)
+    init = {"w": rng.standard_normal((4, 5)).astype(np.float32),
+            "b": rng.standard_normal((5,)).astype(np.float32),
+            "v": rng.standard_normal((2, 3, 2)).astype(np.float32),
+            "s": rng.standard_normal((3,)).astype(np.float32),
+            "c": rng.standard_normal((1, 4)).astype(np.float32)}
+    grads = [{k: torch.from_numpy((sc * rng.standard_normal(v.shape))
+                                  .astype(np.float32)) for k, v in init.items()}
+             for sc in (0.05, 0.02, 1.0, 2.0)]
+    for g in grads:
+        g["c"] = g["c"].as_strided((1, 4), (1, 1))
+    model = _Tiny(init)
+    state, _ = trainer.create_train_state(port_cfg, model, 4)
+    return state, grads
+
+
+@pytest.mark.parametrize("name", ["adamw", "sgd"])
+@pytest.mark.parametrize("every_k", [1, 2])
+def test_multi_tensor_update_is_the_per_leaf_rule(every_k, name):
+    """4 micro-steps through :func:`trainer.apply_gradients` (clip 1.0,
+    some steps clipped and some not, EMA on) give the parameters, moments
+    and EMA of the per-leaf rules (``torch_optim_reference.py``) bit for
+    bit: on the CPU each ``_foreach`` op runs the per-tensor op, so equal
+    op sequences give equal bits. The one op that differs is the global
+    norm (one multi-tensor norm against a Python sum of per-leaf sums):
+    both sides clip with the port's, and
+    :func:`test_global_norm_matches_the_per_leaf_sum` holds it to the sum.
+    The update counters count every update and every leaf."""
+    state, grads = _leaves_case(every_k, name)
+    opt = state.optimizer
+    ref = torch_optim_reference.PerLeaf(opt, norm=optim.global_norm)
+    ema = {k: state.ema[k].clone() for k in opt.params}
+    steps0 = optim.multi_tensor_update.steps
+    leaves0 = optim.multi_tensor_update.leaves
+    norms = []
+    for i, g in enumerate(grads):
+        norm, finite = trainer.apply_gradients(state, g, every_k, 0.5)
+        assert finite and torch_optim_reference.apply_gradients(
+            ref, ema, g, i, every_k, 0.5)
+        norms.append(norm.item())
+        for k, p in opt.params.items():
+            assert torch.equal(p, ref.params[k]), (k, i)
+            assert torch.equal(state.ema[k], ema[k]), (k, i)
+            for moment in ("mu", "nu", "trace", "acc"):
+                if moment in ref.state:
+                    assert torch.equal(opt.state[moment][k],
+                                       ref.state[moment][k]), (moment, k, i)
+        assert {k: v for k, v in opt.state.items()
+                if not isinstance(v, dict)} == \
+            {k: v for k, v in ref.state.items() if not isinstance(v, dict)}
+    assert max(norms[:2]) < 0.5 and min(norms[2:]) > 3.0
+    updates = len(grads) // every_k
+    assert optim.multi_tensor_update.steps - steps0 == updates
+    assert optim.multi_tensor_update.leaves - leaves0 == 5 * updates
+
+
+def test_global_norm_matches_the_per_leaf_sum():
+    """The multi-tensor global norm equals the per-leaf sum of squares to
+    rel 1e-6 (leaves of 1 to 200k entries, scales 1e-3 to 1e3), and stays
+    non-finite where a leaf is."""
+    rng = np.random.default_rng(5)
+    shapes = [(), (3,), (64, 48), (7, 5, 3, 3), (200_000,), (2, 1)]
+    leaves = [torch.from_numpy(np.asarray(
+        10.0 ** rng.uniform(-3, 3) * rng.standard_normal(s), np.float32))
+        for s in shapes]
+    want = torch_optim_reference.global_norm(leaves).item()
+    assert optim.global_norm(leaves).item() == pytest.approx(want, rel=1e-6)
+    for bad in (np.inf, np.nan):
+        leaves[2][1, 1] = bad
+        got = optim.global_norm(leaves).item()
+        assert not np.isfinite(got)
+        assert np.isnan(got) == np.isnan(bad)
+
+
+@pytest.mark.parametrize("every_k,norms", [(1, 1), (2, 3)])
+def test_apply_gradients_computes_the_norm_once(monkeypatch, every_k, norms):
+    """At ``every_k`` 1 the clip reuses :func:`trainer.apply_gradients`'
+    norm: one global norm per step that clips; a step on another mapping
+    than the last norm's takes its own. With accumulation the clip takes
+    the norm of the accumulated mean: one more per update."""
+    state, grads = _leaves_case(every_k)
+    calls = []
+    real = optim.global_norm
+    monkeypatch.setattr(optim, "global_norm",
+                        lambda ts: calls.append(1) or real(ts))
+    for g in grads[2:2 + every_k]:  # norms over the clip
+        trainer.apply_gradients(state, g, every_k, 0.5)
+    assert state.optimizer.state["count"] == 1
+    assert len(calls) == norms
+    if every_k == 1:
+        state.optimizer.global_norm(grads[2])
+        state.optimizer.step(dict(grads[3]))
+        assert len(calls) == norms + 2
 
 
 # ----------------------------------------------------- one train step ----
