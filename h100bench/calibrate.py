@@ -10,9 +10,10 @@ correctness control takes the program's place: the plain reference with
 every product's operands rounded to float8 e4m3 (the step below the
 configuration's bfloat16), on the same inputs and at the same sizes, and
 its readings against the float32 reference are printed: the upper
-readings. For each of ``--fault-seeds`` the cell runs with each fault of
-``faults.py`` planted in the program's timed path, and its readings are
-printed: the upper readings of a number the control does not separate.
+readings. For each of ``--fault-seeds`` the cell runs with each fault it
+can have (``faults.py::planted``) planted in the program's timed path,
+and its readings are printed: the upper readings of a number the control
+does not separate.
 One JSON line per reading. Needs the card, as the benchmark does.
 """
 
@@ -77,8 +78,7 @@ def main(argv=None) -> int:
                           "seed": seed, "check_s": time.perf_counter() - t0,
                           **readings}), flush=True)
         del loop
-    planted = (faults.TRAINING if traffic["kind"] == "train"
-               else faults.SERVING)
+    planted = faults.planted(cfg, traffic["kind"])
     for seed in [int(s) for s in args.fault_seeds.split(",") if s]:
         for name, fault in planted.items():
             loop = kind(cfg, traffic, seed, "cuda", mutate=fault)

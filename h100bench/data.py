@@ -16,6 +16,8 @@ WEIGHTS, IMAGES, LABELS, MASKS, SAMPLE = range(5)
 
 # bare parameters the models draw from N(0, 1)
 _UNIT_NORMAL = ("blank_k", "blank_v", "rel_pos_emb", "scale_emb")
+# scales of a branch or a token kind, drawn as a norm's scale
+_NEAR_ONE = ("importance", "gamma1", "gamma2")
 
 
 def stream_seed(seed: int, stream: int) -> int:
@@ -30,10 +32,12 @@ def generator(seed: int, stream: int, device) -> torch.Generator:
 
 def _scale(name: str, shape: Tuple[int, ...]) -> Tuple[float, float]:
     """(mean, std) of a leaf: fan-in scaled convolutions, std-0.02 products,
-    unit-normal tokens and embeddings, norms near 1, small biases."""
+    unit-normal tokens and embeddings, norms and layer-scale gammas near 1
+    (so a branch enters at about its own size, as in a model without layer
+    scale), small biases."""
     if name.endswith(_UNIT_NORMAL):
         return 0.0, 1.0
-    if name.endswith("importance"):
+    if name.endswith(_NEAR_ONE):
         return 1.0, 0.1
     if len(shape) == 4:
         fan_in = shape[1] * shape[2] * shape[3]

@@ -4,10 +4,14 @@ every size and count read from the file.
 * ``train``: a closed loop of training steps at ``batch`` over a pool of
   ``pool`` seeded device-resident batches. The first ``check_steps`` steps
   of set-up are the ones the reference replays: their losses, the first
-  step's gradient (from the optimizer's first moments) and the parameters
-  after the last of them are kept. Set-up then runs the rest of the pool
-  once (``warmup_steps`` in all), and the window runs steps until
-  ``seconds`` have passed.
+  update's gradient (from the optimizer's first moments after micro-step
+  ``accumulation_steps - 1``, the configuration's ``train`` block saying
+  how many micro-steps make an update; ``check_steps`` is a multiple of
+  it) and the parameters after the last of them are kept. Set-up then
+  runs the rest of the pool once (``warmup_steps`` in all), and the window
+  runs steps until ``seconds`` have passed. The reference draws its
+  stochastic-depth masks and its mixup from generators seeded as the
+  program's.
 * ``infer_batch``: a closed loop of eval forwards at ``batch`` over the
   pool (the reference's ``--throughput`` protocol over the whole window);
   ``check_calls`` of the window's answers are kept, drawn from the seed.
@@ -32,7 +36,7 @@ from typing import List, Tuple
 import torch
 
 from . import check, data, program, reference, trace
-from .reference.train import replay_steps
+from .reference.train import accumulation, mixes, replay_steps
 
 GIB = 2.0 ** 30
 
@@ -125,6 +129,11 @@ class TrainLoop(Loop):
     """A closed loop of ``train_step``s (kind ``train``)."""
 
     def setup(self):
+        accum = accumulation(self.cfg["train"])
+        if int(self.traffic["check_steps"]) % accum:
+            raise ValueError(f"check_steps {self.traffic['check_steps']} is "
+                             f"not a multiple of the {accum} micro-steps "
+                             "of an update")
         self.build()
         self.pool = self.batches()
         self.step, self.optimizer = program.make_train_step(
@@ -137,7 +146,7 @@ class TrainLoop(Loop):
             out = self.step(*self.pool[i % self.pool_size])
             if i < int(self.traffic["check_steps"]):
                 self.losses.append(out["loss"].detach().float().cpu())
-                if i == 0:
+                if i == accum - 1:
                     self.grads = {k: (m / (1 - b1)).cpu() for k, m in
                                   program.first_moments(
                                       self.optimizer).items()}
@@ -163,26 +172,38 @@ class TrainLoop(Loop):
 
     def replay(self, precision="float32") -> dict:
         """The reference's replay of the checked steps from the same
-        weights, inputs and masks: losses, the first step's gradients, the
-        parameters at the start and after the last step (on the host)."""
+        weights, inputs and masks: losses, the first update's gradients,
+        the parameters at the start and after the last step (on the
+        host)."""
         ref = self.reference(precision)
         ref.set_checkpoint(True)
         if hasattr(ref, "upsample_generator"):
             ref.upsample_generator = torch.Generator().manual_seed(
                 self.mask_seed)
+        ref.drop_generator = torch.Generator(
+            device=self.device).manual_seed(self.mask_seed)
+        mix = None
+        if mixes(self.cfg["train"]):
+            mix = torch.Generator().manual_seed(self.mask_seed)
         start = {k: v.cpu() for k, v in self.weights(ref).items()}
         n = int(self.traffic["check_steps"])
-        out = replay_steps(ref, self.batches()[:n], self.cfg["train"],
-                           self.classes)
+        pool = self.batches()
+        out = replay_steps(ref, [pool[i % len(pool)] for i in range(n)],
+                           self.cfg["train"], self.classes, mix)
         return {"losses": out["losses"], "start": start,
                 "grads": {k: v.cpu() for k, v in out["grads"].items()},
                 "params": {k: v.cpu() for k, v in out["params"].items()}}
 
     def check(self):
         self.free()
+        self.peak_reset()
+        t0 = time.perf_counter()
         ref = self.replay()
-        return check.train_readings([float(x) for x in self.losses],
-                                    self.grads, ref["start"], self.end, ref)
+        took, peak = time.perf_counter() - t0, self.peak_bytes() / GIB
+        readings = check.train_readings([float(x) for x in self.losses],
+                                        self.grads, ref["start"], self.end,
+                                        ref)
+        return {**readings, "_replay_s": took, "_replay_peak_gib": peak}
 
 
 class InferBatchLoop(Loop):
@@ -266,7 +287,9 @@ class InferRequestLoop(Loop):
         n, t = self.timed(seconds, self._one)
         self.attempted = n
         lat = self.latency_ms
-        return {"infer_ms_p95": statistics.quantiles(lat, n=100)[94],
+        # a window that held one request (a slow host) has it as its tail
+        p95 = statistics.quantiles(lat, n=100)[94] if n > 1 else lat[0]
+        return {"infer_ms_p95": p95,
                 "peak_mem_gib": self.peak_bytes() / GIB,
                 "peak_bytes": self.peak_bytes(),
                 "rate_img_s": n / t}

@@ -16,6 +16,7 @@ This is the only module of the benchmark that imports the package.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
@@ -92,3 +93,34 @@ def serve(prog: Dict[str, object]):
         return out[-1] if isinstance(out, (list, tuple)) else out
 
     return forward
+
+
+# ----------------------------------------------- hooks of planted faults
+def drop_path_draw(prog: Dict[str, object], b: int) -> None:
+    """Spend one stochastic-depth mask's draw of the model's generator."""
+    from ml_autofocusformermod_torch.models.layers import DropPath
+
+    gen = next(m.generator for m in prog["model"].modules()
+               if isinstance(m, DropPath) and m.rate > 0)
+    torch.rand((b, 1, 1), generator=gen, device=gen.device)
+
+
+def leave_out_layer_scale(prog: Dict[str, object]) -> None:
+    """Make every block add its branches without their gammas."""
+    for m in prog["model"].modules():
+        if getattr(m, "use_layer_scale", False):
+            m.use_layer_scale = False
+
+
+@contextlib.contextmanager
+def mixup_lambda(change):
+    """Inside the block the package's mixup / cutmix lambda is
+    ``change(lambda)``."""
+    from ml_autofocusformermod_torch.train import losses
+
+    draw = losses._beta
+    losses._beta = lambda gen, alpha: change(draw(gen, alpha))
+    try:
+        yield
+    finally:
+        losses._beta = draw

@@ -3,18 +3,26 @@
 A frozen copy of the plain paths of the measured package's
 ``models/layers.py``, ``ops/cluster_attention.py`` (the gather-based
 attention) and ``ops/cluster_merge.py`` (the gather-based merge), with
-the same parameter names, so that one state dict loads into both. No
-kernel, dropout, remat or parallel path: every product runs through a
-:class:`~h100bench.reference.precision.Precision`, everything else in
+the same parameter names in the same state-dict order, so that one state
+dict, and one flat draw of weights over it, loads into both. No kernel,
+element-wise dropout, remat or parallel path: every product runs through
+a :class:`~h100bench.reference.precision.Precision`, everything else in
 float32. LayerNorm uses the fast variance ``E[x^2] - E[x]^2`` and
 BatchNorm in training mode the biased batch variance, as the model
 defines them.
+
+Stochastic depth is replayed: :func:`draw_drop_masks` draws a training
+forward's per-sample keep masks up front from a generator seeded as the
+program's, one ``rand((b, 1, 1))`` per :class:`DropPath` call in the
+program's forward order, and each :class:`DropPath` holds its two, so a
+checkpointed block's recompute reads the masks its forward read.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -80,19 +88,38 @@ def offset_features(dx, dy):
 
 
 def local_attention(prec, q, kv, ncc, pos, pe_w, pe_b, blank_k, blank_v, h,
-                    cs, rel_width, clamp_width):
+                    cs, rel_width, clamp_width, chunk):
     """Each query attends over its ``nnc`` nearest clusters' tokens and a
     learned blank token, with a relative-position bias: one softmax over
     the slots that hold a token and the blank. ``q`` is scaled already;
-    ``kv`` (b, n, 2c) holds k and v interleaved per head."""
+    ``kv`` (b, n, 2c) holds k and v interleaved per head. With ``chunk``
+    the queries go ``chunk`` rows at a time, each under ``checkpoint``, so
+    that only one chunk's gathered keys and values are held."""
     b, n, c = q.shape
     c_ = c // h
     qh = q.float().reshape(b, n, h, c_).permute(0, 2, 1, 3)
     kvh = kv.float().reshape(b, n, h, 2, c_)
     kh = kvh[..., 0, :].permute(0, 2, 1, 3)
     vh = kvh[..., 1, :].permute(0, 2, 1, 3)
+    args = (pe_w, pe_b, blank_k, blank_v, cs, rel_width, clamp_width)
+    if not chunk or chunk >= n:
+        out = _attend(prec, qh, kh, vh, ncc, pos, pos, *args)
+    else:
+        out = torch.cat([torch.utils.checkpoint.checkpoint(
+            _attend, prec, qh[:, :, i:i + chunk], kh, vh,
+            ncc[:, i:i + chunk], pos, pos[:, i:i + chunk], *args,
+            use_reentrant=False) for i in range(0, n, chunk)], dim=2)
+    return out.permute(0, 2, 1, 3).reshape(b, n, c)
+
+
+def _attend(prec, qh, kh, vh, ncc, pos, pos_q, pe_w, pe_b, blank_k, blank_v,
+            cs, rel_width, clamp_width):
+    """(b, h, nq, c_) outputs of the queries ``qh`` at ``pos_q`` over the
+    clusters ``ncc`` (b, nq, nnc) of the ``n`` tokens ``kh``, ``vh`` at
+    ``pos``."""
+    h, n, c_ = kh.shape[1], kh.shape[2], kh.shape[3]
     pos_g = gather_clusters(pos[:, None].float(), ncc, cs)[:, 0]
-    rel = pos_g - pos[:, :, None, :].float()
+    rel = pos_g - pos_q[:, :, None, :].float()
     if clamp_width:
         rel = torch.clamp(rel + rel_width, 0, clamp_width - 1) - rel_width
     feat5 = offset_features(rel[..., 0], rel[..., 1])  # b n m 5
@@ -110,9 +137,8 @@ def local_attention(prec, q, kv, ncc, pos, pe_w, pe_b, blank_k, blank_v, h,
     pb = torch.exp(blank - mx)
     denom = p.sum(-1, keepdim=True) + pb
     p, pb = p / denom, pb / denom
-    out = prec.einsum("bhim,bhimc->bhic", p, vg) \
+    return prec.einsum("bhim,bhimc->bhic", p, vg) \
         + pb * blank_v.float().reshape(1, h, 1, c_)
-    return out.permute(0, 2, 1, 3).reshape(b, n, c)
 
 
 def dense_attention(prec, q, kv, pe_feat, pos_embed, blank_k, blank_v, h):
@@ -133,12 +159,14 @@ def dense_attention(prec, q, kv, pe_feat, pos_embed, blank_k, blank_v, h):
 
 
 class ClusterAttention(nn.Module):
-    def __init__(self, dim, num_heads, rel_pos_width, prec, clamp_width=0):
+    def __init__(self, dim, num_heads, rel_pos_width, prec, clamp_width,
+                 chunk):
         super().__init__()
         self.prec = prec
         self.num_heads = num_heads
         self.rel_pos_width = rel_pos_width
         self.clamp_width = clamp_width
+        self.chunk = chunk
         self.q = Linear(dim, dim, prec)
         self.kv = Linear(dim, 2 * dim, prec)
         self.pos_embed = Linear(5, num_heads, prec)
@@ -157,7 +185,7 @@ class ClusterAttention(nn.Module):
             out = local_attention(
                 self.prec, q, kv, ncc, pos, self.pos_embed.weight,
                 self.pos_embed.bias, self.blank_k, self.blank_v, h, cs,
-                self.rel_pos_width, self.clamp_width)
+                self.rel_pos_width, self.clamp_width, self.chunk)
         return self.proj(out)
 
 
@@ -171,21 +199,73 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
+class DropPath(nn.Module):
+    """Per-sample stochastic depth in training: a sample is kept where its
+    draw is below ``1 - rate`` and scaled by ``1 / (1 - rate)``, else
+    zeroed. ``masks`` holds the two draws of the step (the attention
+    branch's, the MLP branch's), set by :func:`draw_drop_masks`."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+        self.masks = None
+
+    def forward(self, x, which: int):
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        return torch.where(self.masks[which] < keep, x / keep,
+                           torch.zeros_like(x))
+
+
+def draw_drop_masks(model: nn.Module, generator, b: int, device) -> None:
+    """A training forward's keep masks: two ``rand((b, 1, 1))`` draws from
+    ``generator`` for each :class:`DropPath` of ``model`` whose rate is
+    not 0, in the order of the model's modules, which is the order its
+    forward calls them."""
+    for mod in model.modules():
+        if isinstance(mod, DropPath) and mod.rate != 0.0:
+            if generator is None:
+                raise ValueError("DropPath needs the model's drop_generator")
+            mod.masks = [torch.rand((b, 1, 1), generator=generator,
+                                    device=device) for _ in range(2)]
+
+
+def drop_path_rates(rate: float, depths) -> list:
+    """The rate of each block, rising linearly from 0 over all blocks."""
+    return np.linspace(0, rate, sum(depths)).tolist()
+
+
 class ClusterTransformerBlock(nn.Module):
-    """Pre-LN attention + MLP residual block."""
+    """Pre-LN attention + MLP residual block; with ``layer_scale`` each
+    branch is scaled by its learned ``gamma1`` / ``gamma2`` before
+    stochastic depth."""
 
     def __init__(self, dim, num_heads, mlp_ratio, rel_pos_width, prec,
-                 clamp_width=0):
+                 clamp_width, layer_scale, drop_path, chunk):
         super().__init__()
+        if layer_scale:
+            self.gamma1 = nn.Parameter(torch.zeros(dim))
+            self.gamma2 = nn.Parameter(torch.zeros(dim))
         self.norm1 = LayerNorm(dim)
         self.attn = ClusterAttention(dim, num_heads, rel_pos_width, prec,
-                                     clamp_width)
+                                     clamp_width, chunk)
+        self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), prec)
 
     def forward(self, x, global_attn, pe_feat, ncc, cs, pos):
-        x = x + self.attn(self.norm1(x), global_attn, pe_feat, ncc, cs, pos)
-        return x + self.mlp(self.norm2(x))
+        y = self.attn(self.norm1(x), global_attn, pe_feat, ncc, cs, pos)
+        return residual(self, x, y, lambda t: self.mlp(self.norm2(t)))
+
+
+def residual(block, x, y, mlp):
+    """``x + y`` then the MLP branch, each branch through the block's
+    ``gamma`` (when it has one) and ``drop_path``."""
+    gamma = getattr(block, "gamma1", None) is not None
+    x = x + block.drop_path(block.gamma1 * y if gamma else y, 0)
+    z = mlp(x)
+    return x + block.drop_path(block.gamma2 * z if gamma else z, 1)
 
 
 def run_blocks(blocks, x, checkpoint: bool, *args):

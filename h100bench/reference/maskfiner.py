@@ -7,6 +7,9 @@ Tokens carry ``(scale, x, y)`` positions in min-patch units. The
 upsampling masks are random scores: in training a fresh ``randn((b, n))``
 per level from the CPU generator ``upsample_generator``, at eval one draw
 per level from a generator seeded with ``mask_seed * 1009 + level``.
+Layer scale and stochastic depth (``mr``'s ``drop_path_rate``, rising
+linearly over all levels' blocks) are replayed as in the AFF reference,
+the latter from ``drop_generator``.
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .geometry import gather_rows, knn, space_filling_cluster
-from .layers import (ClusterTransformerBlock, LayerNorm, Linear, batch_norm,
-                     no_dropout, offset_features, run_blocks)
+from .layers import (ClusterTransformerBlock, DropPath, LayerNorm, Linear,
+                     batch_norm, draw_drop_masks, drop_path_rates, no_dropout,
+                     offset_features, residual, run_blocks)
 from .precision import Precision
 
 REL_POS_WIDTH = 2048 // 4 - 1
@@ -140,14 +144,16 @@ class OverlapPatchEmbedding(nn.Module):
 
 
 class MixResBasicLayer(nn.Module):
-    def __init__(self, dim, cs, nbhd, depth, heads, mlp_ratio, prec):
+    def __init__(self, dim, cs, nbhd, depth, heads, mlp_ratio, prec,
+                 layer_scale, drop_path, chunk):
         super().__init__()
         self.cs, self.nbhd = cs, nbhd
         self.checkpoint = False
         self.blocks = nn.ModuleList(
             ClusterTransformerBlock(dim, heads, mlp_ratio, REL_POS_WIDTH,
-                                    prec, clamp_width=TABLE_WIDTH)
-            for _ in range(depth))
+                                    prec, TABLE_WIDTH, layer_scale,
+                                    drop_path[i], chunk)
+            for i in range(depth))
 
     def forward(self, pos, feat, h, w):
         R, tw = REL_POS_WIDTH, TABLE_WIDTH
@@ -210,7 +216,9 @@ class MixResNeighbour(nn.Module):
                 self.token_projection = Linear(c, self.d_model, prec)
         self.layers = MixResBasicLayer(self.d_model, a["cluster_size"],
                                        a["nbhd_size"], a["n_layers"],
-                                       a["n_heads"], a["mlp_ratio"], prec)
+                                       a["n_heads"], a["mlp_ratio"], prec,
+                                       a["layer_scale"], a["drop_path"],
+                                       a["chunk"])
         self.norm_out = LayerNorm(self.d_model)
 
     @property
@@ -340,16 +348,20 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, dim, heads, mlp_dim, prec):
+    def __init__(self, dim, heads, mlp_dim, prec, layer_scale, drop_path):
         super().__init__()
+        if layer_scale:
+            self.gamma1 = nn.Parameter(torch.zeros(dim))
+            self.gamma2 = nn.Parameter(torch.zeros(dim))
         self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim, heads, prec)
+        self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim)
         self.mlp = FeedForward(dim, mlp_dim, prec)
 
     def forward(self, x, h, w):
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x), h, w)
+        y = self.attn(self.norm1(x))
+        return residual(self, x, y, lambda t: self.mlp(self.norm2(t), h, w))
 
 
 class MixResViT(nn.Module):
@@ -372,8 +384,9 @@ class MixResViT(nn.Module):
                                                prec)
         self.layers = nn.ModuleDict({"blocks": nn.ModuleList(
             Block(self.d_model, a["n_heads"],
-                  int(self.d_model * a["mlp_ratio"]), prec)
-            for _ in range(a["n_layers"]))})
+                  int(self.d_model * a["mlp_ratio"]), prec,
+                  a["layer_scale"], a["drop_path"][i])
+            for i in range(a["n_layers"]))})
         self.norm_out = LayerNorm(self.d_model)
 
     def forward(self, im, scale, features, features_pos, mask, layout):
@@ -401,17 +414,18 @@ class UpDown(nn.Module):
     """The UD classifier: NCHW images -> (b, num_classes) logits."""
 
     def __init__(self, mr: dict, num_classes: int, ratios, prec: Precision,
-                 mask_seed: int = 0):
+                 mask_seed: int = 0, chunk: int = 0):
         super().__init__()
-        no_dropout(mr.get("drop_path_rate"), "drop_path_rate")
         for key in ("drop_rate", "attn_drop_rate"):
             no_dropout(max(mr.get(key, [0.0])), key)
-        if mr.get("num_register_tokens") or mr.get("layer_scale") \
-                or mr.get("aux_loss"):
-            raise ValueError("register tokens, layer scale and aux heads are "
-                             "not in the reference")
+        if mr.get("num_register_tokens") or mr.get("aux_loss"):
+            raise ValueError("register tokens and aux heads are not in the "
+                             "reference")
         n_scales = mr["n_resolution_scales"]
         total = len(mr["name"])
+        depths = mr["depths"]
+        dpr = drop_path_rates(mr.get("drop_path_rate", 0.0), depths)
+        self.drop_generator = None
         self.n_scales = n_scales
         self.all_out_features = tuple(mr["out_features"])
         self.mask_seed = int(mask_seed)
@@ -429,7 +443,10 @@ class UpDown(nn.Module):
                      cluster_size=mr["cluster_size"][i],
                      nbhd_size=mr["nbhd_size"][i],
                      keep_old_scale=mr["keep_old_scale"],
-                     add_image_data_to_all=mr["add_image_data_to_all"])
+                     add_image_data_to_all=mr["add_image_data_to_all"],
+                     layer_scale=mr.get("layer_scale", 0.0),
+                     drop_path=dpr[sum(depths[:i]):sum(depths[:i + 1])],
+                     chunk=chunk)
             if i >= n_scales:
                 a.update(patch_sizes=tuple(mr["patch_sizes"][i:]),
                          out_features=tuple(mr["out_features"][-(total - i):]),
@@ -471,6 +488,8 @@ class UpDown(nn.Module):
                 - self.all_out_features.index(f))
 
     def forward(self, x):
+        if self.training:
+            draw_drop_masks(self, self.drop_generator, x.shape[0], x.device)
         im = x.permute(0, 2, 3, 1).contiguous()
         mask = features = features_pos = None
         layout: Dict[int, int] = {}
