@@ -174,10 +174,11 @@ class Optimizer:
             return
         n_acc = self.state["mini_step"]
         acc = self.lists["acc"]
-        d = torch._foreach_sub(g, acc)
-        torch._foreach_div_(d, n_acc + 1)
-        torch._foreach_add_(acc, d)
-        del d
+        with span("optim.accumulate"):
+            d = torch._foreach_sub(g, acc)
+            torch._foreach_div_(d, n_acc + 1)
+            torch._foreach_add_(acc, d)
+            del d
         if n_acc == self.every_k - 1:
             self._inner(acc, None)
             torch._foreach_zero_(acc)

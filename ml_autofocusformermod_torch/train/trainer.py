@@ -197,8 +197,9 @@ def make_train_step(config, state: TrainState, schedule: Callable) -> Callable:
     ``loss``, ``grad_norm`` (before clipping), ``grads_finite`` and ``lr``
     (the schedule at this optimizer step). Each step first checks that the
     ambient mesh is the state's layout's (:func:`check_mesh`). Under a
-    profiler a step is one ``train_step`` span holding its ``.forward``,
-    ``.backward`` and ``.optimizer`` (``utils/profiling.py``)."""
+    profiler a step is one ``train_step`` span holding its ``.forward``
+    (with ``.mix`` around mixup / cutmix), ``.backward`` and
+    ``.optimizer`` (``utils/profiling.py``)."""
     num_classes = config.MODEL.NUM_CLASSES
     smoothing = config.MODEL.LABEL_SMOOTHING
     mixup_on = config.AUG.MIXUP > 0 or config.AUG.CUTMIX > 0
@@ -223,13 +224,14 @@ def make_train_step(config, state: TrainState, schedule: Callable) -> Callable:
                     elem_step_seed(state.elem_seed, state.step))
             with span(STEP_SPAN + ".forward"):
                 if mixup_on:
-                    images, target = mixup_cutmix(
-                        state.mix_generator, images, labels, num_classes,
-                        mixup_alpha=config.AUG.MIXUP,
-                        cutmix_alpha=config.AUG.CUTMIX,
-                        prob=config.AUG.MIXUP_PROB,
-                        switch_prob=config.AUG.MIXUP_SWITCH_PROB,
-                        smoothing=smoothing, partner=partner)
+                    with span(STEP_SPAN + ".mix"):
+                        images, target = mixup_cutmix(
+                            state.mix_generator, images, labels,
+                            num_classes, mixup_alpha=config.AUG.MIXUP,
+                            cutmix_alpha=config.AUG.CUTMIX,
+                            prob=config.AUG.MIXUP_PROB,
+                            switch_prob=config.AUG.MIXUP_SWITCH_PROB,
+                            smoothing=smoothing, partner=partner)
                 else:
                     target = smooth_one_hot(labels, num_classes, smoothing)
                 for p in params.values():

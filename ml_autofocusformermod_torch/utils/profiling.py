@@ -17,6 +17,12 @@ launch:
   ``train_step.backward`` (``loss.backward()``) and
   ``train_step.optimizer`` (the gradients' mean over ranks, norm, clip,
   AdamW, EMA, the loss's all-reduce);
+* ``train_step.mix``, inside ``train_step.forward``, around
+  ``train/losses.py::mixup_cutmix`` where the step mixes;
+* ``optim.accumulate``, inside ``train_step.optimizer``, around the
+  running mean of the micro-gradients in ``train/optim.py::
+  Optimizer.step`` when it accumulates (every micro-step; the update
+  itself follows on each ``accumulation_steps``-th);
 * ``sync.grads_finite`` and ``sync.clip``, around the two reads of a
   device value that make the host wait for the device in every step: a
   sync span lasts as long as the host waits;
