@@ -78,6 +78,15 @@ Phases, one JSON line each:
    same bytes for every output, recomputing, from the saved statistics
    and from them under dropout, at AFF-Mini stages 1-3 (b = 128 bf16,
    b = 8 fp32) and at UD-Mini's n = 4165 (b = 128 bf16, b = 2 fp32);
+   then layer_norm_check: the LayerNorm kernels through both wrappers at
+   every input shape of a training forward of AFF-Mini and UD-Mini (b =
+   128) and AFF-Base-384 (b = 16), f32 and bf16, forward and all three
+   gradients against autograd of the plain expression and the statistics
+   against it in f64 (``time_kernels.layer_norm_gaps``: 1e-5 of the terms
+   each result sums, scaled per row by the condition number of ``E[x^2] -
+   E[x]^2``), one call of each wrapper a check; at bf16 the kernels'
+   times through autograd and alone, and the plain expression's, beside
+   the bytes bound (kernel_time ``layer_norm_fwd`` / ``_bwd``);
 5. model_check: AFF-Mini 224 built through ``build_model`` and the port's
    ``aff_mini.yaml`` from a fixed seed, fp32, b = 2: the GPU forward (CUDA
    kernels, TF32 off) against the CPU forward (plain versions) on the same
@@ -99,8 +108,8 @@ Phases, one JSON line each:
    way (fp32, b = 2, GPU against CPU on the same weights and upsampling
    masks): logits within 1e-3 and the same argmax, every level's nearest
    clusters equal on both devices, 25 (OT) and 16 (UD-Mini) attention
-   launches per forward, no other kernel, one tile metadata per local
-   level (3 and 5);
+   launches per forward, no other kernel but the LayerNorm's, one tile
+   metadata per local level (3 and 5);
    maskfiner_train_check: one train step of UD-Mini and of OT (with
    ``MODEL.MR.DROP_RATE`` zeroed, ``overrides``: the devices' Dropout
    streams differ) at full width, fp32, b = 2, as the preset configures
@@ -110,7 +119,7 @@ Phases, one JSON line each:
    curriculum's first ratios and at the final ones: the same limits as
    train_check, and 16 + 16 (UD-Mini) or 25 + 25 (OT) attention launches
    per step, every one with statistics (and dropout in the dropout run),
-   no other kernel;
+   no other kernel but the LayerNorm's;
 7. eval / throughput: the entry point ``ml_autofocusformermod_torch.main``
    with ``--eval`` over a few synthetic batches, then ``--throughput`` at
    b = 128 in bf16 (50 warmup + 30 timed forwards);
@@ -120,7 +129,7 @@ Phases, one JSON line each:
 9. the MaskFiner path: ``main --eval`` on UD-Mini 224 (b = 32, bf16),
    then ``--throughput`` at b = 128 bf16 of UD-Mini and of OT, images/s
    beside the card's name and power limit; the attention forward is the
-   only kernel launched (16 and 25 per forward);
+   only kernel launched (16 and 25 per forward) besides the LayerNorm's;
 10. maskfiner_train: the entry point training UD-Mini 224 (the MaskFiner
    training path) and OT 224 in bf16 at b = 128, as the preset
    configures them and again with attention dropout 0.1 on every level,
@@ -238,7 +247,12 @@ Phases, one JSON line each:
 
 The launch counters are zeroed just before each run of the entry point
 and read just after; each mode of the attention kernels has a counter of
-its own. The ``kernels`` line gives each kernel's launches in the
+its own. Every launch count checked holds the LayerNorm's too
+(``LN_CALLS``): a forward launch per ``LayerNormFp32`` call (32 per
+AFF-Mini forward, 76 UD-Mini, 90 OT), two backward launches per call
+whose output reaches the loss (32, 73 and 90 per step), and under
+``TPU.REMAT`` the blocks' calls once more in each backward (24 and 38), so
+a LayerNorm that ran the plain expression on the card fails the script. The ``kernels`` line gives each kernel's launches in the
 AFF-Mini training run (the dropout modes': the UD-Mini training run
 with attention dropout) and, under ``launches_by_path``, in the UD-Mini
 throughput run and in each MaskFiner training run too (``..._train``: as
@@ -317,6 +331,10 @@ KERNELS = {
     # the merge backward's inverse index: part of that kernel's port (the
     # TPU kernel needs no index), a launch of its own before it
     "merge_inverse_index": ("cluster_merge_bwd.cu", TPU_MERGE + "304", []),
+    # replace no TPU kernel: the JAX package leaves LayerNormFp32 to XLA's
+    # fusion of its array expressions
+    "layer_norm_fwd": ("layer_norm.cu", None, []),
+    "layer_norm_bwd": ("layer_norm.cu", None, []),
 }
 
 # the attention kernels these replaced (one warp per (query, head)) at
@@ -1017,6 +1035,95 @@ def preset_path(preset):
                         "ml_autofocusformermod_torch", "configs", preset)
 
 
+def phase_layer_norm(torch, dev="cuda"):
+    """The LayerNorm kernels through both wrappers (``layer_norm``, through
+    autograd, and ``layer_norm_backward``) at every input shape of a
+    training forward of the benchmark's three models (AFF-Mini and UD-Mini
+    at ratio 0.9 at b = 128, AFF-Base-384 at b = 16:
+    ``time_kernels.LN_MODELS``), in f32 and bf16: ``layer_norm_gaps``
+    against autograd of the plain expression and the statistics against
+    the expression in f64 (rows from N(0, 1), near-constant and constant
+    rows; every gap over its tolerance at most 1), and per check one call
+    of each wrapper, one forward launch (and one more for the statistics)
+    and two backward launches. Then per shape at bf16 the times
+    (``time_kernels.layer_norm_calls``: the forward, the backward, both
+    through autograd, and the plain expression's), beside the bytes bound.
+    Returns the kernel_time rows by model label, then by kernel."""
+    from ml_autofocusformermod_torch.ops.layer_norm import (
+        layer_norm, layer_norm_backward,
+    )
+    from ml_autofocusformermod_torch.time_kernels import (
+        LN_MODELS, layer_norm_calls, layer_norm_case, layer_norm_gaps,
+        layer_norm_shapes,
+    )
+
+    def counts():
+        return (layer_norm.calls, layer_norm.launches,
+                layer_norm_backward.calls, layer_norm_backward.launches)
+
+    dev = torch.device(dev)
+    gen = torch.Generator().manual_seed(13)
+    out = {}
+    for label, preset, batch, ratios in LN_MODELS:
+        rows = {"layer_norm_fwd": [], "layer_norm_bwd": []}
+        shapes = layer_norm_shapes(preset, ratios, dev)
+        for (c, per_image, contiguous), n in sorted(shapes.items()):
+            r = per_image * batch
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).split(".")[1]
+                x, w, b, g = layer_norm_case(r, c, dtype, dev, seed=r + c)
+                if not contiguous:  # PatchEmbed's transposed tokens
+                    x = x.t().contiguous().t()
+                before = counts()
+                gaps = layer_norm_gaps(x, w, b, g)
+                torch.cuda.synchronize()
+                calls = tuple(a - b_ for a, b_ in zip(counts(), before))
+                del x, w, b, g
+                errs[dname] = (gaps["max_abs_err"], gaps["dx_max_abs_err"])
+                worst = max(v for k, v in gaps.items()
+                            if not k.endswith(("max_abs_err", "kappa_max")))
+                ok = worst <= 1 and calls == (1, 2, 1, 2)
+                emit({"phase": "layer_norm_check", "model": label,
+                      "b": batch, "c": c, "rows": r,
+                      "contiguous": contiguous, "dtype": dname, **gaps,
+                      "worst_gap": worst, "calls_launches": calls, "ok": ok})
+                if not ok:
+                    raise AssertionError(
+                        f"LayerNorm {label} c={c} rows={r} {dname}: gaps "
+                        f"{gaps}, calls and launches {calls}")
+            fns, bound = layer_norm_calls(c, r, contiguous, dev,
+                                          torch.bfloat16, gen)
+            base = dict(model=label, shape=f"c{c}_rows{r}"
+                        + ("" if contiguous else "_transposed"), b=batch,
+                        c=c, rows=r, contiguous=contiguous, per_pass=n,
+                        bound_by="bytes")
+            times = {}
+            for d, fn in fns.items():
+                times[f"{d}_ms"] = time_ms(fn)
+                # a pass through autograd takes ~1-2 ms of host: 5 calls
+                # stay inside device_ms's sleep
+                times[f"{d}_device_ms"] = device_ms(
+                    fn, iters=5 if d.endswith("fwd_bwd") else 20)
+            for kernel, d, err in (("layer_norm_fwd", "fwd", 0),
+                                   ("layer_norm_bwd", "bwd", 1)):
+                row = dict(base, ms=times[f"{d}_ms"],
+                           device_ms=times[f"{d}_device_ms"],
+                           plain_ms=times[f"plain_{d}_ms"],
+                           plain_device_ms=times[f"plain_{d}_device_ms"],
+                           bound_ms=bound[d],
+                           max_abs_err=errs["bfloat16"][err],
+                           max_abs_err_f32=errs["float32"][err])
+                if d == "bwd":
+                    row.update(
+                        {k: v for k, v in times.items() if "fwd_bwd" in k})
+                rows[kernel].append(row)
+                emit({"phase": "kernel_time", "kernel": kernel,
+                      "dtype": "bfloat16", **row})
+        out[label] = rows
+    return out
+
+
 def phase_model(torch):
     import numpy as np
 
@@ -1026,6 +1133,9 @@ def phase_model(torch):
     )
     from ml_autofocusformermod_torch.ops.cluster_merge import (
         fused_cluster_merge, merge_inverse_index,
+    )
+    from ml_autofocusformermod_torch.ops.layer_norm import (
+        layer_norm, layer_norm_backward,
     )
 
     cfg = port_config("aff_mini.yaml", ["TPU.COMPUTE_DTYPE", "float32"])
@@ -1038,12 +1148,14 @@ def phase_model(torch):
         with torch.no_grad():
             fused_cluster_attention.launches = 0
             fused_cluster_merge.launches = 0
+            layer_norm.launches = layer_norm_backward.launches = 0
             tile_metadata.calls = 0
             merge_inverse_index.calls = 0
             out = gpu(x.cuda()).float().cpu()
             torch.cuda.synchronize()
             launches = (fused_cluster_attention.launches,
-                        fused_cluster_merge.launches)
+                        fused_cluster_merge.launches, layer_norm.launches,
+                        layer_norm_backward.launches)
             meta_calls = tile_metadata.calls
             index_calls = merge_inverse_index.calls
             ref = build_model(cfg, "cpu", seed=0)(x).float()
@@ -1052,13 +1164,16 @@ def phase_model(torch):
     err = (out - ref).abs().max().item()
     same_argmax = bool((out.argmax(-1) == ref.argmax(-1)).all())
     # stages 2 and 3 make their metadata; stage 1's is the cached grid's
-    ok = (err <= 1e-3 and same_argmax and launches == (10, 3)
+    ok = (err <= 1e-3 and same_argmax
+          and launches == (10, 3, LN_CALLS["aff_mini"][0], 0)
           and meta_calls <= 3 and index_calls == 0
           and bool(out.isfinite().all()) and out.shape == (2, 1000))
     emit({"phase": "model_check", "model": "aff_mini_224", "dtype": "float32",
           "b": 2, "max_abs_err_vs_cpu": err, "same_argmax": same_argmax,
           "launches_per_forward": {"cluster_attention_fwd": launches[0],
-                                   "cluster_merge_fwd": launches[1]},
+                                   "cluster_merge_fwd": launches[1],
+                                   "layer_norm_fwd": launches[2],
+                                   "layer_norm_bwd": launches[3]},
           "tile_metadata_calls": meta_calls,
           "merge_inverse_index_calls": index_calls, "ok": ok})
     if not ok:
@@ -1167,6 +1282,7 @@ def phase_maskfiner_model(torch):
                             zip(nccs["cuda"], nccs["cpu"])))
         want = dict.fromkeys(counters(), 0)
         want["cluster_attention_fwd"] = attn_per_fwd
+        want.update(layer_norm_launches(name, 1))
         ok = (err <= 1e-3 and same_argmax and same_ncc and launches == want
               and meta_calls == meta_per_fwd
               and bool(out.isfinite().all()) and out.shape == (2, 1000))
@@ -1420,8 +1536,9 @@ def phase_maskfiner_train_check(torch):
     presets have none), and the attention forward and backward launches
     per step (16 and 16 for UD-Mini, 25 and 25 for OT; each forward with
     statistics, each backward from them, both with dropout in the
-    dropout run), no other kernel. OT runs with ``MODEL.MR.DROP_RATE``
-    zeroed: the two devices' Dropout streams differ."""
+    dropout run), no other kernel but the LayerNorm's. OT runs with
+    ``MODEL.MR.DROP_RATE`` zeroed: the two devices' Dropout streams
+    differ."""
     import numpy as np
 
     from ml_autofocusformermod_torch.models.build import build_model
@@ -1479,6 +1596,7 @@ def phase_maskfiner_train_check(torch):
                             for k, t in ref_stats.items()] or [0.0])
             want = dict.fromkeys(counters(), 0)
             want.update(attention_launches(0, attn, attn_drop=attn_drop))
+            want.update(layer_norm_launches(name, 0, 1))
             ok = (abs(loss - ref_loss) <= 1e-4 * abs(ref_loss)
                   and abs(gn - ref_gn) <= 1e-4 * abs(ref_gn)
                   and worst[0] <= 1e-3 and stat_err <= 1e-5
@@ -1532,7 +1650,17 @@ COUNTERS = {
     "cluster_attention_bwd_range": ("cluster_attention",
                                     "cluster_attention_backward",
                                     "range_launches"),
+    # the LayerNorm: one forward launch a call, two backward launches (the
+    # gradients, then the fixed-order sum of dweight and dbias) a call
+    "layer_norm_fwd": ("layer_norm", "layer_norm", "launches"),
+    "layer_norm_bwd": ("layer_norm", "layer_norm_backward", "launches"),
 }
+# LayerNormFp32 calls by model: (calls per forward, calls whose output
+# reaches the training loss, so backward calls per step, calls inside the
+# blocks, which TPU.REMAT runs once more in each backward); counted on the
+# CPU with the module routed through the op, at every ratio the script runs
+LN_CALLS = {"aff_mini": (32, 32, 24), "maskfiner_ud_mini": (76, 73, 38),
+            "maskfiner_ot": (90, 90, 60)}
 
 
 def counters():
@@ -1552,6 +1680,16 @@ def zero_counters():
 
 def read_counters():
     return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+
+
+def layer_norm_launches(model, fwd_passes, train_steps=0, remat=False):
+    """The LayerNorm's launch counters for ``fwd_passes`` forwards outside
+    training and ``train_steps`` train steps of ``model`` (a
+    :data:`LN_CALLS` name)."""
+    fwd, bwd, blocks = LN_CALLS[model]
+    return {"layer_norm_fwd": fwd * (fwd_passes + train_steps)
+            + (blocks * train_steps if remat else 0),
+            "layer_norm_bwd": 2 * bwd * train_steps}
 
 
 def attention_launches(fwd, steps, attn_drop=False):
@@ -1695,18 +1833,19 @@ def phase_maskfiner_entry(torch, smi):
     """``main --eval`` on UD-Mini 224 (b = 32, bf16) over the synthetic
     set, then ``--throughput`` at b = 128 bf16 of UD-Mini (the MaskFiner
     main path) and of OT. Returns the UD-Mini throughput run's launches."""
-    ud, ud_attn, _ = MASKFINER["maskfiner_ud_mini"]
+    ud = MASKFINER["maskfiner_ud_mini"][0]
     common = ["--device", "cuda", "--data-path", "no_dataset"]
 
-    def expect_mf(attn_per_fwd, forwards):
+    def expect_mf(name, forwards):
         want = dict.fromkeys(counters(), 0)
-        want["cluster_attention_fwd"] = attn_per_fwd * forwards
+        want["cluster_attention_fwd"] = MASKFINER[name][1] * forwards
+        want.update(layer_norm_launches(name, forwards))
         return want
 
     result, secs, launches = run_main(
         torch, ["--cfg", preset_path(ud), "--eval", "--batch-size", "32"]
         + common)
-    ok = (launches == expect_mf(ud_attn, 50 + 30 + 4)
+    ok = (launches == expect_mf("maskfiner_ud_mini", 50 + 30 + 4)
           and all(math.isfinite(result[k]) for k in EVAL_KEYS))
     emit({"phase": "eval", "model": "maskfiner_ud_mini", "batch": 32,
           "dtype": "bfloat16", **result, "seconds": secs,
@@ -1715,11 +1854,11 @@ def phase_maskfiner_entry(torch, smi):
         raise AssertionError(f"UD-Mini --eval run: launches {launches}")
     path_launches = {}
     for name in ("maskfiner_ud_mini", "maskfiner_ot"):
-        preset, attn, _ = MASKFINER[name]
+        preset = MASKFINER[name][0]
         result, secs, launches = run_main(
             torch, ["--cfg", preset_path(preset), "--throughput",
                     "--batch-size", "128"] + common)
-        ok = (launches == expect_mf(attn, 50 + 30)
+        ok = (launches == expect_mf(name, 50 + 30)
               and result["throughput_img_s"] > 0)
         emit({"phase": "throughput", "model": name, "batch": 128,
               "dtype": "bfloat16", "img_per_s": result["throughput_img_s"],
@@ -1841,6 +1980,7 @@ def phase_maskfiner_train(torch, smi):
         want = dict.fromkeys(counters(), 0)
         want.update(attention_launches(attn * (50 + 30 + 2 * 4),
                                        attn * steps, attn_drop=dropping))
+        want.update(layer_norm_launches(name, 50 + 30 + 2 * 4, steps))
         ratios = [e["ratios"] for e in epochs]
         ok = (launches == want and steps == 8 and ckpt
               and all(e["skipped_steps"] == 0 for e in epochs)
@@ -2185,7 +2325,9 @@ def phase_imagefolder_train(torch, smi, root, pths, synthetic):
             want = dict.fromkeys(counters(), 0)
             want_eval = dict(want)
             want.update(attention_launches(attn * 82, attn * 4))
+            want.update(layer_norm_launches(name, 82, 4))
             want_eval.update(attention_launches(attn * 82, 0))
+            want_eval.update(layer_norm_launches(name, 82))
         pre = result["weights"]["pretrained"]
         reproduced = (abs(again["loss"] - train["val_loss"])
                       <= 1e-5 * abs(train["val_loss"]))
@@ -2319,6 +2461,7 @@ def expect_path(model, fwd_passes, train_steps=0, remat=False,
     want["cluster_merge_fwd"] = merges * (fwd_passes + train_steps)
     want["cluster_merge_bwd"] = merges * train_steps
     want["merge_inverse_index"] = merges * train_steps
+    want.update(layer_norm_launches(model, fwd_passes, train_steps, remat))
     return want
 
 
@@ -2329,7 +2472,9 @@ def phase_ops_check(torch):
     dropout, its saved backward under the same dropout, the merge forward
     and backward, the inverse index; each against its plain version on the
     same inputs (the backwards' in f64) within 1e-4 of max|ref| (the index
-    exactly), with one launch of its kernel (and its modes) per call."""
+    exactly), with one launch of its kernel (and its modes) per call; then
+    the LayerNorm forward and its backward (two launches) at stage 2's
+    tokens and width, against the plain expression in f64."""
     from ml_autofocusformermod_torch.ops.cluster_attention import (
         cluster_attention_backward_reference, cluster_attention_reference,
         tile_metadata,
@@ -2337,6 +2482,9 @@ def phase_ops_check(torch):
     from ml_autofocusformermod_torch.ops.cluster_merge import (
         cluster_merge_backward_reference, cluster_merge_reference,
         merge_inverse_index_reference,
+    )
+    from ml_autofocusformermod_torch.ops.layer_norm import (
+        layer_norm_backward_reference, layer_norm_reference,
     )
 
     ops = torch.ops.mlaff
@@ -2353,6 +2501,9 @@ def phase_ops_check(torch):
     mlabel, mn, mn_, mc = MERGES[1]
     w, feat, sel = merge_inputs(gen, 8, mn, mn_, mc, dev, torch.float32)
     gm = torch.randn(8, mn_, IC, mc, generator=gen).to(dev)
+    # the LayerNorm at stage 2's tokens and width
+    lx, lg = (torch.randn(8, n, c, generator=gen).to(dev) for _ in range(2))
+    lw, lb = (torch.randn(c, generator=gen).to(dev) for _ in range(2))
 
     def f64(ts):
         return [t.double() if t.is_floating_point() and t is not a["pos"]
@@ -2389,6 +2540,19 @@ def phase_ops_check(torch):
         return (ops.merge_inverse_index(sel, mn, CS),
                 merge_inverse_index_reference(sel, mn, CS))
 
+    def ln_fwd():
+        got = ops.layer_norm_fwd(lx, lw, lb, 1e-5)
+        saved["ln"] = got
+        return got, layer_norm_reference(lx.double(), lw.double(),
+                                         lb.double(), 1e-5)
+
+    def ln_bwd():
+        _, mean, rstd = saved["ln"]
+        return (ops.layer_norm_bwd(lx, lw, mean, rstd, lg),
+                layer_norm_backward_reference(
+                    lx.double(), lw.double(), mean.double(), rstd.double(),
+                    lg.double()))
+
     cases = [
         ("cluster_attention_fwd", label, attn_fwd,
          ["cluster_attention_fwd", "cluster_attention_fwd_stats",
@@ -2400,13 +2564,16 @@ def phase_ops_check(torch):
         ("cluster_merge_bwd", mlabel, merge_bwd,
          ["cluster_merge_bwd", "merge_inverse_index"]),
         ("merge_inverse_index", mlabel, index, ["merge_inverse_index"]),
+        ("layer_norm_fwd", label, ln_fwd, ["layer_norm_fwd"]),
+        # the gradients, then the sum of dweight and dbias
+        ("layer_norm_bwd", label, ln_bwd, ["layer_norm_bwd"] * 2),
     ]
     for op, shape, fn, launched in cases:
         zero_counters()
         got, ref = fn()
         torch.cuda.synchronize()
         launches = read_counters()
-        want = {k: int(k in launched) for k in launches}
+        want = {k: launched.count(k) for k in launches}
         if op == "merge_inverse_index":
             err = 0.0 if all(torch.equal(x, y) for x, y in zip(got, ref)) \
                 else float("inf")
@@ -2724,7 +2891,10 @@ TRACE_KERNELS = {"cluster_attention_fwd_kernel": "cluster_attention_fwd",
                      "cluster_attention_bwd_saved",
                  "cluster_merge_fwd_": "cluster_merge_fwd",
                  "cluster_merge_bwd_": "cluster_merge_bwd",
-                 "merge_index_kernel": "merge_inverse_index"}
+                 "merge_index_kernel": "merge_inverse_index",
+                 # both backward kernels (ln_bwd or ln_bwd_rows, then
+                 # ln_bwd_reduce) match, as the counter counts both
+                 "::ln_fwd": "layer_norm_fwd", "::ln_bwd": "layer_norm_bwd"}
 
 
 def phase_profile(torch, smi):
@@ -3882,7 +4052,7 @@ def phase_parallel_pipe_train(torch, smi, dev="cuda", b=128):
 
 
 def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
-                 mft_launches, tp_rows, seq_rows):
+                 mft_launches, tp_rows, seq_rows, ln_rows):
     """One entry per CUDA kernel: launches in the training run of the entry
     point (the AFF path, which runs them all), the worst check error, and
     per AFF-Mini b128 bf16 pass (a forward for the forward kernels, a
@@ -3901,8 +4071,12 @@ def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
     ranges at seq 2 (AFF-Mini's first half of every stage's tokens), with
     the launches of rank 0 of parallel_seq_check's AFF-Mini run (two
     steps), every row of the seq-2 ranges (both halves, AFF-Mini and
-    UD-Mini) under ``seq2_per_shape``. A kernel of the path that the run
-    did not launch fails the script."""
+    UD-Mini) under ``seq2_per_shape``. The LayerNorm kernels' rows are
+    AFF-Mini's (``per_pass``: the forward's calls of the shape, all of
+    which reach the loss), with UD-Mini's and AFF-Base-384's
+    (``ln_rows``) under ``ud_mini_b128`` (launches of the UD-Mini training
+    run) and ``aff_base384_b16`` (no run of this script trains it). A
+    kernel of the path that the run did not launch fails the script."""
     def total(rs, key):
         return sum(r[key] * r["per_pass"] for r in rs)
 
@@ -3961,6 +4135,12 @@ def kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
             entry["seq2_per_shape"] = seq
         if mf:
             entry["maskfiner_ud_mini"] = block(mf, mf_launches[name])
+        if name.startswith("layer_norm"):
+            entry["ud_mini_b128"] = block(
+                ln_rows["ud_mini"][name],
+                mft_launches["maskfiner_ud_mini_train"][name])
+            entry["aff_base384_b16"] = block(ln_rows["aff_base384"][name],
+                                             None)
         for tag in ("r1", "final"):
             part = [r for r in mft if r["ratios"] == tag]
             if part:
@@ -3985,6 +4165,8 @@ def main() -> int:
                 "cluster_attention_bwd": bwd["attention"],
                 "cluster_attention_bwd_dropout": bwd["dropout"],
                 **phase_merge(torch)}
+        ln_rows = phase_layer_norm(torch)
+        rows.update(ln_rows["aff_mini"])
         mf_rows = phase_maskfiner_kernels(torch)
         mft_rows, widest = phase_maskfiner_train_kernels(torch)
         phase_attention_bwd_deterministic(torch, widest)
@@ -4022,7 +4204,7 @@ def main() -> int:
         phase_parallel_pipe_check(torch, smi)
         mft_launches.update(phase_parallel_pipe_train(torch, smi))
         line = kernels_line(rows, launches, mf_rows, mf_launches, mft_rows,
-                            mft_launches, tp_rows, seq_rows)
+                            mft_launches, tp_rows, seq_rows, ln_rows)
     finally:
         stop_processes()
     emit(line)

@@ -2,7 +2,8 @@
 the eval forward as a ``torch.export`` program.
 
 The program calls the fused kernels as the dispatcher ops
-``mlaff::cluster_attention_fwd`` and ``mlaff::cluster_merge_fwd``, and
+``mlaff::cluster_attention_fwd``, ``mlaff::cluster_merge_fwd`` and
+``mlaff::layer_norm_fwd`` (on the card), and
 holds the on-grid stage's clustering and the MaskFiner eval masks as
 constants on the device it was traced on. Loading it needs the ops,
 registered by importing this module (which imports the port's ``ops``
@@ -25,6 +26,7 @@ import torch
 
 from ..ops import cluster_attention as _attention  # noqa: F401 (the ops)
 from ..ops import cluster_merge as _merge  # noqa: F401
+from ..ops import layer_norm as _layer_norm  # noqa: F401
 
 __all__ = ["export_forward", "save_exported", "load_exported"]
 

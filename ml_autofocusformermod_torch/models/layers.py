@@ -34,6 +34,7 @@ from ..ops.cluster_gather import gather_clusters, gather_rows
 from ..ops.cluster_merge import fused_cluster_merge
 from ..ops.clusten import wf_contract
 from ..ops.knn import nearest_other_distance
+from ..ops.layer_norm import layer_norm, layer_norm_reference
 from ..parallel import comm
 from ..utils.profiling import span
 
@@ -157,7 +158,9 @@ class Linear(nn.Linear):
 
 class LayerNormFp32(nn.Module):
     """LayerNorm in float32 with the fast-variance form ``E[x^2]-E[x]^2``
-    (JAX package ``layers.py:170-175``); returns the input dtype."""
+    (JAX package ``layers.py:170-175``); returns the input dtype. On a CUDA
+    tensor it is the op ``mlaff::layer_norm_fwd`` (``ops/layer_norm.py``:
+    one kernel forward, two backward); on the CPU the expression below."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -166,11 +169,14 @@ class LayerNormFp32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
-        x32 = x.float()
-        mean = x32.mean(-1, keepdim=True)
-        var = ((x32 * x32).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
-        return y.to(x.dtype)
+        if x.is_cuda:
+            return layer_norm(x, self.weight, self.bias, self.eps)
+        return self.expression(x)
+
+    def expression(self, x):
+        """The plain expression (the CPU's path; on the card the kernels'
+        yardstick): :func:`layer_norm_reference`'s y."""
+        return layer_norm_reference(x, self.weight, self.bias, self.eps)[0]
 
 
 def rel_pos_features(rel_pos: torch.Tensor, rel_pos_width: int):

@@ -33,7 +33,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("cluster_attention", "cluster_attention_bwd",
            "cluster_attention_bwd_saved", "cluster_merge",
-           "cluster_merge_bwd")
+           "cluster_merge_bwd", "layer_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

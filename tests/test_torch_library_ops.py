@@ -12,7 +12,13 @@
   takes through the ops' formulas against the plain backwards called
   directly;
 * the flop formulas that ``utils/flops.py`` registers: a hand count at one
-  tiny shape, equal to ``FlopCounterMode`` over the plain versions.
+  tiny shape, equal to ``FlopCounterMode`` over the plain versions;
+* the LayerNorm ops (``mlaff::layer_norm_fwd``, ``_bwd``): opcheck, and
+  the plain backward against autograd of ``LayerNormFp32``'s expression,
+  in bf16 and f32 at widths 1 to 2048, with a constant row, rows whose
+  variance clamps and transposed (non-contiguous) rows; the card check's
+  tolerances (``time_kernels.layer_norm_gaps``) against the plain
+  expression and its float64 evaluation.
 """
 
 import numpy as np
@@ -24,9 +30,17 @@ from ml_autofocusformermod_torch.ops.cluster_attention import (
     cluster_attention_backward_reference, cluster_attention_reference,
     fused_cluster_attention, tile_metadata,
 )
+from ml_autofocusformermod_torch.models.layers import LayerNormFp32
 from ml_autofocusformermod_torch.ops.cluster_merge import (
     cluster_merge_backward_reference, cluster_merge_reference,
     fused_cluster_merge, merge_inverse_index_reference,
+)
+from ml_autofocusformermod_torch.ops.layer_norm import (
+    layer_norm, layer_norm_backward, layer_norm_backward_reference,
+    layer_norm_reference,
+)
+from ml_autofocusformermod_torch.time_kernels import (
+    layer_norm_case, layer_norm_gaps,
 )
 from ml_autofocusformermod_torch.utils import flops
 
@@ -174,3 +188,126 @@ def test_flop_formulas_match_a_hand_count():
     with FlopCounterMode(display=False) as plain_count:
         cluster_merge_reference(w, f, ncc, cs)
     assert op_count.get_total_flops() == plain_count.get_total_flops() == hand
+
+
+LN_WIDTHS = [1, 4, 32, 384, 2048]
+LN_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _layer_norm_case(c, dtype, seed=2):
+    """(x, weight, bias, g): 2 x 6 rows of ``c``; row (0, 0) constant and,
+    in f32, rows (1, 0:4) at 300 plus noise of 1e-3, where ``E[x^2] -
+    E[x]^2`` cancels and some rows clamp at 0."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(2, 6, c, generator=gen) * 2 + 0.5
+    x[0, 0] = 1.25
+    if dtype == torch.float32 and c > 1:
+        x[1, :4] = 300 + 1e-3 * torch.randn(4, c, generator=gen)
+    w = torch.randn(c, generator=gen)
+    b = torch.randn(c, generator=gen)
+    g = torch.randn(2, 6, c, generator=gen)
+    return x.to(dtype), w, b, g.to(dtype)
+
+
+@pytest.mark.parametrize("c", [1, 384])
+@pytest.mark.parametrize("dtype", LN_DTYPES, ids=["f32", "bf16"])
+def test_opcheck_layer_norm(c, dtype):
+    x, w, b, g = _layer_norm_case(c, dtype)
+    torch.library.opcheck(OPS.layer_norm_fwd.default, (
+        x.requires_grad_(True), w.requires_grad_(True),
+        b.requires_grad_(True), 1e-5))
+    _, mean, rstd = layer_norm_reference(x.detach(), w.detach(), b.detach(),
+                                         1e-5)
+    torch.library.opcheck(OPS.layer_norm_bwd.default, (
+        x.detach(), w.detach(), mean, rstd, g))
+    # rows whose last dim is not contiguous, as PatchEmbed hands them over
+    xt = x.detach().transpose(1, 2).contiguous().transpose(1, 2)
+    assert c == 1 or not xt.is_contiguous()
+    torch.library.opcheck(OPS.layer_norm_fwd.default, (
+        xt.requires_grad_(True), w.detach(), b.detach(), 1e-5))
+
+
+def _close_by_row(got, want, mean, rstd, rtol):
+    """|got - want| <= rtol * (the row's largest |want|) * (1 + |mean| *
+    rstd on rows not clamped) + one rounding of ``want`` in ``got``'s dtype.
+    On a row not clamped, autograd of the expression adds ``2 x dvar / C``
+    and ``-2 mean dvar / C``: two terms ``|mean| * rstd`` times the
+    result's scale that cancel (the rows at 300 + 1e-3 noise)."""
+    got, want = got.double(), want.double()
+    gain = torch.where(rstd > 0, 1 + mean.abs() * rstd, 1.0)[..., None]
+    scale = want.abs().amax(-1, keepdim=True) * gain.double()
+    ulp = want.abs() * (2.0 ** -8 if got.dtype == torch.bfloat16 else 0.0)
+    return bool(((got - want).abs() <= rtol * scale + ulp).all())
+
+
+@pytest.mark.parametrize("c", LN_WIDTHS)
+@pytest.mark.parametrize("dtype", LN_DTYPES, ids=["f32", "bf16"])
+def test_layer_norm_backward_reference_equals_autograd(c, dtype):
+    """The op's forward is ``LayerNormFp32``'s CPU expression bit for bit;
+    its plain backward equals autograd of that expression. Both are f32
+    evaluations of one gradient, ops in another order: dx within 1e-6 of
+    its row's largest entry (a few f32 roundings of the row's largest
+    term, :func:`_close_by_row`), plus one rounding to bf16 where dx is
+    bf16; dweight and dbias, the same sums in the same order, equal. The
+    clamped rows drop the variance's path as autograd of ``clamp_min``
+    does, and the transposed case runs through ``layer_norm``, as the
+    model calls it."""
+    x, w, b, g = _layer_norm_case(c, dtype)
+    norm = LayerNormFp32(c)
+    with torch.no_grad():
+        norm.weight.copy_(w)
+        norm.bias.copy_(b)
+    for transposed in (False, True):
+        xin = (x.transpose(1, 2).contiguous().transpose(1, 2)
+               if transposed else x)
+        xl = xin.clone().requires_grad_(True)
+        norm.zero_grad()
+        y = norm(xl)
+        y.backward(g)
+        want_y, mean, rstd = layer_norm_reference(xin, w, b, norm.eps)
+        assert torch.equal(y, want_y)
+        if dtype == torch.float32 and c > 1:
+            clamped = (rstd < 0).sum().item()
+            assert 0 < clamped < rstd.numel()
+        dx, dw, db = layer_norm_backward_reference(xin, w, mean, rstd, g)
+        assert dx.dtype == dtype and dw.dtype == db.dtype == torch.float32
+        assert _close_by_row(dx, xl.grad, mean, rstd, 1e-6)
+        assert torch.equal(dw, norm.weight.grad)
+        assert torch.equal(db, norm.bias.grad)
+        # the op's autograd formula is the plain backward, on the
+        # contiguous rows that layer_norm hands the op (a CPU sum over
+        # transposed rows takes another order)
+        want_y, mean, rstd = layer_norm_reference(xin.contiguous(), w, b,
+                                                  norm.eps)
+        dx, dw, db = layer_norm_backward_reference(xin.contiguous(), w, mean,
+                                                   rstd, g)
+        xo = xin.clone().requires_grad_(True)
+        wo, bo = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        calls = layer_norm.calls, layer_norm_backward.calls
+        launches = layer_norm.launches, layer_norm_backward.launches
+        yo = layer_norm(xo, wo, bo, norm.eps)
+        yo.backward(g)
+        assert torch.equal(yo, want_y)
+        assert torch.equal(xo.grad, dx)
+        assert torch.equal(wo.grad, dw) and torch.equal(bo.grad, db)
+        assert (layer_norm.calls, layer_norm_backward.calls) == (
+            calls[0] + 1, calls[1] + 1)
+        assert (layer_norm.launches, layer_norm_backward.launches) == \
+            launches  # CPU: plain
+
+
+@pytest.mark.parametrize("c", [2, 3] + LN_WIDTHS)
+@pytest.mark.parametrize("dtype", LN_DTYPES, ids=["f32", "bf16"])
+def test_layer_norm_gaps_hold_for_the_plain_expression(c, dtype):
+    """The card's check, ``time_kernels.layer_norm_gaps``, on the CPU: the
+    op's plain forward and backward against autograd of the expression,
+    and the witness for its tolerances: on rows from N(0, 1), near-constant
+    rows and constant rows (E[x^2] up to 1e5 times ``var + eps``), the
+    plain f32 expression sits within the condition-scaled tolerance of the
+    expression in float64."""
+    x, w, b, g = layer_norm_case(300, c, dtype, "cpu", seed=c)
+    gaps = layer_norm_gaps(x, w, b, g)
+    assert gaps["kappa_max"] > 1000
+    assert gaps["max_abs_err"] == 0.0  # the op's CPU forward is the expression
+    assert all(gaps[k] <= 1 for k in ("mean", "rstd", "y", "dx", "dw", "db",
+                                      "kernel_vs_f64", "plain_vs_f64"))
